@@ -1,0 +1,70 @@
+"""Weight bridge: flax variables of the JAX package -> the port's modules.
+
+`load_flax_variables(model, variables)` takes the flax ``variables`` as
+nested dicts of numpy arrays ({'params': ..., 'batch_stats': ...}) and copies
+them into the port's parameters and buffers:
+
+- `Linear` kernels [in, out] -> weights [out, in]; biases as they are;
+- BatchNorm `scale`/`bias` -> `weight`/`bias`, `batch_stats/{mean,var}` ->
+  `running_mean`/`running_var`;
+- `Embedding` tables -> `weight`.
+
+Module paths map one to one, except that flax names a GIN layer's update MLP
+`mlp_i` beside the layer while the port nests it as `layer_i.mlp` (`conv_i.mlp`
+inside the SignNet phi).  Every flax leaf must land on a tensor of the same
+size and every port tensor must be set, or it raises.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+         "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def torch_name(path: tuple) -> str:
+    """Port tensor name for a flax leaf path (without the collection)."""
+    parts = list(path[:-1])
+    for i, p in enumerate(parts):
+        m = re.fullmatch(r"mlp_(\d+)", p)
+        if m:
+            conv = "conv" if i > 0 and parts[i - 1] == "enc" else "layer"
+            parts[i] = f"{conv}_{m.group(1)}.mlp"
+    return ".".join(parts + [_LEAF[path[-1]]])
+
+
+def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
+    targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
+    seen = set()
+    for coll in ("params", "batch_stats"):
+        for path, arr in _flatten(variables.get(coll, {})).items():
+            name = torch_name(path)
+            if name not in targets:
+                raise KeyError(f"flax {coll}/{'/'.join(path)} -> {name}: no "
+                               "such tensor in the port")
+            t = targets[name]
+            val = arr.T if path[-1] == "kernel" else arr
+            if tuple(val.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: flax shape {arr.shape} does not "
+                                 f"fit {tuple(t.shape)}")
+            with torch.no_grad():
+                t.copy_(torch.from_numpy(np.array(val)))
+            seen.add(name)
+    missing = sorted(set(targets) - seen)
+    if missing:
+        raise KeyError(f"port tensors the flax variables do not set: {missing}")

@@ -1,0 +1,111 @@
+"""Pad-and-bucket batching: the host-side input pipeline (numpy).
+
+Port of signnet_basisnet_tpu/data/batcher.py.  Graphs are packed greedily
+into fixed (node, edge, graph) budgets and padded, so every batch has the same
+shapes; a background thread packs the next batches while the device computes.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from ..graph.batch import batch_np, from_arrays, len_nodes
+
+
+def choose_budgets(graphs: Sequence[dict], batch_graphs: int,
+                   slack: float = 1.10, align: int = 8,
+                   tile: Optional[int] = None):
+    """Pick (num_nodes, num_edges, num_graphs) budgets from dataset stats.
+
+    Budgets cover `batch_graphs` average-sized graphs with `slack` headroom,
+    rounded up to `align`.  With `tile` set the node budget rounds up to a
+    whole number of tiles (+1 tile of first-fit headroom) and the edge budget
+    to a multiple of 1024, the JAX kernels' load granularity (kept so both
+    packages pack the same batches).
+    """
+    ns = np.array([len_nodes(g) for g in graphs])
+    es = np.array([len(g["senders"]) for g in graphs])
+    num_nodes = int(np.ceil(max(ns.mean() * batch_graphs * slack, ns.max() + 1)))
+    num_edges = int(np.ceil(max(es.mean() * batch_graphs * slack, es.max() + 1)))
+    rnd = lambda v, a: int(-(-v // a) * a)
+    if tile is not None:
+        return (rnd(num_nodes, tile) + tile, rnd(num_edges, 1024),
+                batch_graphs + 1)
+    return rnd(num_nodes, align), rnd(num_edges, align), batch_graphs + 1
+
+
+def pack_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
+                 num_graphs: int, shuffle: bool = False,
+                 seed: int = 0, drop_overflow: bool = True,
+                 k: Optional[int] = None,
+                 tile: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+    """Greedy packing into fixed budgets; returns padded array dicts.
+
+    With `tile` set, a graph joins the current batch only if some tile still
+    has room for all of its nodes.
+    """
+    order = np.arange(len(graphs))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    batches = []
+    cur: List[dict] = []
+    cur_n = cur_e = 0
+    free = (np.full(num_nodes // tile, tile, dtype=np.int64)
+            if tile is not None else None)
+    max_n = tile if tile is not None else num_nodes
+
+    def flush():
+        nonlocal cur, cur_n, cur_e
+        batches.append(batch_np(cur, num_nodes, num_edges, num_graphs, k=k,
+                                tile=tile))
+        cur, cur_n, cur_e = [], 0, 0
+        if free is not None:
+            free[:] = tile
+
+    for i in order:
+        g = graphs[i]
+        n, e = len_nodes(g), len(g["senders"])
+        if n > max_n or e > num_edges:
+            if drop_overflow:
+                continue
+            raise ValueError("graph larger than batch budget")
+        tile_full = free is not None and not (free >= n).any()
+        if (cur_n + n > num_nodes or cur_e + e > num_edges
+                or len(cur) + 1 >= num_graphs or tile_full):
+            flush()
+        cur.append(g)
+        cur_n += n
+        cur_e += e
+        if free is not None:
+            t = int(np.argmax(free >= n))
+            free[t] -= n
+    if cur:
+        batches.append(batch_np(cur, num_nodes, num_edges, num_graphs, k=k,
+                                tile=tile))
+    return batches
+
+
+def iterate_graphbatches(graphs, num_nodes, num_edges, num_graphs,
+                         shuffle=False, seed=0, k=None, tile=None,
+                         prefetch: int = 2) -> Iterator:
+    """Yield GraphBatch objects (CPU tensors) packed by a background thread."""
+    def producer(q):
+        try:
+            for arrays in pack_batches(graphs, num_nodes, num_edges,
+                                       num_graphs, shuffle=shuffle,
+                                       seed=seed, k=k, tile=tile):
+                q.put(from_arrays(arrays))
+        finally:
+            q.put(None)
+
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    t = threading.Thread(target=producer, args=(q,), daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is None:
+            break
+        yield item

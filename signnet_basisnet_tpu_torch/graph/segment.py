@@ -1,0 +1,90 @@
+"""Segment reductions — the message-passing primitives.
+
+Port of signnet_basisnet_tpu/graph/segment.py onto `index_add_` and
+`scatter_reduce`.  All functions take a static `num_segments` and never
+produce NaNs on empty segments: means divide by max(count, 1), and max
+returns `empty_value` for a segment with no (unmasked) entries.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+# Large-but-finite stand-in for -inf: masked entries never win a max, and a
+# segment whose max stays at the sentinel is empty.
+_NEG_BIG = -1e30
+
+# Backend for neighbor aggregation (models/conv.neighbor_sum):
+# 'xla' (the flat path: gather + index_add_), 'pallas_tile' (the tile-local
+# SpMM kernel of ops/spmm_tiled.py; its plain version on CPU tensors) or
+# 'tile_dense' (ops/tile_dense.py: block adjacency + batched matmul).
+# The names are the JAX package's, so its configs run unchanged.
+_AGG_BACKEND = "xla"
+
+
+def set_agg_backend(name: str) -> None:
+    global _AGG_BACKEND
+    if name not in ("xla", "pallas_tile", "tile_dense"):
+        raise ValueError(name)
+    _AGG_BACKEND = name
+
+
+def get_agg_backend() -> str:
+    return _AGG_BACKEND
+
+
+def _bcast(w: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    return w.reshape(w.shape + (1,) * (data.dim() - w.dim()))
+
+
+def segment_sum(data, segment_ids, num_segments):
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add_(0, segment_ids.long(), data)
+
+
+def segment_mean(data, segment_ids, num_segments,
+                 weights: Optional[torch.Tensor] = None):
+    """Mean over each segment; `weights` (e.g. a mask) masks entries."""
+    if weights is not None:
+        w = _bcast(weights, data)
+        data = data * w
+        ones = w.expand(data.shape[:1] + (1,) * (data.dim() - 1))
+    else:
+        ones = data.new_ones(data.shape[:1] + (1,) * (data.dim() - 1))
+    s = segment_sum(data, segment_ids, num_segments)
+    c = segment_sum(ones, segment_ids, num_segments)
+    return s / torch.clamp(c, min=1.0)
+
+
+def segment_max(data, segment_ids, num_segments,
+                mask: Optional[torch.Tensor] = None, empty_value=0.0):
+    """Max over segments; empty segments yield `empty_value`."""
+    if mask is not None:
+        data = torch.where(_bcast(mask, data) > 0, data,
+                           torch.full_like(data, _NEG_BIG))
+    idx = _bcast(segment_ids.long(), data).expand_as(data)
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), _NEG_BIG)
+    out = out.scatter_reduce(0, idx, data, reduce="amax", include_self=True)
+    return torch.where(out <= _NEG_BIG / 2, torch.full_like(out, empty_value),
+                       out)
+
+
+def aggregate_edges(edge_msg, receivers, num_nodes, edge_mask=None,
+                    reduce="sum"):
+    """Reduce edge messages into destination nodes (the SpMM scatter half)."""
+    if edge_mask is not None and reduce in ("sum", "mean"):
+        edge_msg = edge_msg * _bcast(edge_mask, edge_msg)
+    if reduce == "sum":
+        return segment_sum(edge_msg, receivers, num_nodes)
+    if reduce == "mean":
+        return segment_mean(edge_msg, receivers, num_nodes, weights=edge_mask)
+    if reduce == "max":
+        return segment_max(edge_msg, receivers, num_nodes, mask=edge_mask)
+    raise ValueError(f"unknown reduce {reduce!r}")
+
+
+def pool_nodes(node_feat, graph_id, num_graphs, node_mask=None, reduce="sum"):
+    """Pool node features per graph: the readout primitive."""
+    return aggregate_edges(node_feat, graph_id, num_graphs, edge_mask=node_mask,
+                           reduce=reduce)

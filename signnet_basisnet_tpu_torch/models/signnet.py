@@ -1,0 +1,73 @@
+"""SignNet's fixed-k DeepSigns encoder with a GIN phi.
+
+Port of signnet_basisnet_tpu/models/signnet.py:38-48 (`sign_fuse`,
+`sign_unfuse`), :137-182 (`_KChannelGNN`, gin kind) and :185-210
+(`GINDeepSigns`): f(v_1..v_k) = rho([phi(v_i) + phi(-v_i)]_i), with the
+(+v, -v) pair fused along the k axis into one phi call over [N, 2k, D].
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..nn.mlp import MLP
+from ..nn.norm import MaskedBatchNorm
+from .conv import GINConv, node_mask_like
+
+
+def sign_fuse(x, mask=None):
+    """Stack (+x, -x) along the k axis (-2 of x, -1 of mask)."""
+    x2 = torch.cat([x, -x], dim=-2)
+    m2 = None if mask is None else torch.cat([mask, mask], dim=-1)
+    return x2, m2
+
+
+def sign_unfuse(y):
+    k = y.shape[-2] // 2
+    return y[..., :k, :] + y[..., k:, :]
+
+
+class KChannelGNN(nn.Module):
+    """GIN phi over [N, K, D] x; BN normalises per feature over all N*K
+    slots (masked by the node mask).  Names: `conv_i` (with `.mlp`) and the
+    between-layer `bn_{i-1}`, as in flax."""
+
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 n_layers: int, use_bn: bool = True):
+        super().__init__()
+        self.n_layers = n_layers
+        self.use_bn = use_bn
+        d_in = in_features
+        for i in range(n_layers):
+            if i != 0 and use_bn:
+                self.add_module(f"bn_{i - 1}", MaskedBatchNorm(d_in))
+            feats = out if i == n_layers - 1 else hidden
+            self.add_module(f"conv_{i}", GINConv(
+                MLP(d_in, hidden, feats, num_layers=2, use_bn=use_bn)))
+            d_in = feats
+
+    def forward(self, gb, x):
+        for i in range(self.n_layers):
+            if i != 0 and self.use_bn:
+                x = getattr(self, f"bn_{i - 1}")(x, mask=node_mask_like(gb, x))
+            x = getattr(self, f"conv_{i}")(gb, x)
+        return x
+
+
+class GINDeepSigns(nn.Module):
+    """Fixed-k DeepSigns: phi over k channels, flatten, rho MLP -> [N, K]."""
+
+    def __init__(self, hidden: int, phi_out: int, num_layers: int, k: int,
+                 use_bn: bool = False):
+        super().__init__()
+        self.enc = KChannelGNN(1, hidden, phi_out, num_layers, use_bn=use_bn)
+        self.rho = MLP(k * phi_out, hidden, k, num_layers=num_layers,
+                       use_bn=use_bn)
+
+    def forward(self, gb, eigvecs):
+        x = eigvecs[..., None]                          # N K 1
+        x2, _ = sign_fuse(x)
+        x = sign_unfuse(self.enc(gb, x2))               # N K phi_out
+        x = x.reshape(x.shape[:-2] + (-1,))
+        # rho's BN runs over every row, padding included, as in flax
+        return self.rho(x)                              # N K

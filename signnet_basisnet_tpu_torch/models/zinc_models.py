@@ -1,0 +1,130 @@
+"""ZINC graph-regression nets: GINNet with its SignNet PE encoder.
+
+Port of signnet_basisnet_tpu/models/zinc_models.py:93-155 (`sign_inv_module`,
+`embed_inputs`, `readout_head`) and :206-231 (`GINNet`).  Signature:
+``model(gb, pos_enc) -> [G]`` scores.  Submodule names follow the flax ones
+(`embedding_h`, `embedding_p`, `embedding_hp`, `embedding_e`,
+`sign_inv_net`, `layer_i.mlp` for flax's `mlp_i`, `mlp_readout`), so the
+weight bridge (bridge.py) is a name mapping.
+
+`gnn_model` builds GIN; the other nets raise NotImplementedError naming their
+ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..nn.init import Embedding, Linear, init_parameters
+from ..nn.mlp import MLP, MLPReadout
+from .conv import GINConv, pool_any
+from .signnet import GINDeepSigns
+
+
+class GINNet(nn.Module):
+    def __init__(self, num_atom_type: int = 28, num_bond_type: int = 4,
+                 hidden_dim: int = 95, out_dim: int = 95, n_layers: int = 16,
+                 readout: str = "mean", in_feat_dropout: float = 0.0,
+                 dropout: float = 0.0, batch_norm: bool = True,
+                 residual: bool = True, edge_feat: bool = True,
+                 pe_init: str = "lap_pe", lap_method: str = "none",
+                 pos_enc_dim: int = 8, sign_inv_net: str = "gin",
+                 sign_inv_layers: int = 8, phi_out_dim: int = 4,
+                 pe_aggregate: str = "add", use_lspe: bool = False,
+                 max_nodes: int = 40, remat: bool = False, seed: int = 0):
+        super().__init__()
+        # the JAX GINNet's GIN layers carry no residual either; max_nodes
+        # sizes the transformer phi only
+        del residual, max_nodes
+        if use_lspe or pe_init == "rand_walk":
+            raise NotImplementedError(
+                "LSPE / rand_walk PE are not ported yet (ROADMAP.md queue 1 "
+                "item 15)")
+        if pe_init not in ("none", "lap_pe"):
+            raise ValueError(f"unknown pe_init {pe_init!r}")
+        if remat:
+            raise NotImplementedError(
+                "remat is not ported yet (ROADMAP.md queue 1 item 16)")
+        if dropout or in_feat_dropout:
+            raise NotImplementedError(
+                "dropout is not ported yet (ROADMAP.md queue 1 item 9)")
+        self.n_layers = n_layers
+        self.readout = readout
+        self.pe_init = pe_init
+        self.lap_method = lap_method
+        self.pe_aggregate = pe_aggregate
+        self.embedding_h = Embedding(num_atom_type, hidden_dim)
+        if pe_init == "lap_pe":
+            if lap_method == "sign_inv":
+                self.sign_inv_net = sign_inv_module(
+                    sign_inv_net, hidden_dim, phi_out_dim, sign_inv_layers,
+                    pos_enc_dim)
+            self.embedding_p = Linear(pos_enc_dim, hidden_dim)
+            if pe_aggregate == "concat":
+                self.embedding_hp = Linear(2 * hidden_dim, hidden_dim)
+        # edge features: parameters of the JAX net (the bridge maps them),
+        # which GIN layers never read
+        self.embedding_e = (Embedding(num_bond_type, hidden_dim) if edge_feat
+                            else Linear(1, hidden_dim))
+        for i in range(n_layers):
+            out = hidden_dim if i < n_layers - 1 else out_dim
+            self.add_module(f"layer_{i}", GINConv(MLP(
+                hidden_dim, hidden_dim, out, num_layers=2,
+                use_bn=batch_norm)))
+        self.mlp_readout = MLPReadout(out_dim, 1)
+        init_parameters(self, torch.Generator().manual_seed(seed))
+
+    def embed_inputs(self, gb, pos_enc):
+        codes = gb.node_feat
+        if codes.dim() == 2:
+            codes = codes[:, 0]
+        h = self.embedding_h(codes)
+        if self.pe_init == "lap_pe" and pos_enc is not None:
+            if self.lap_method == "sign_inv":
+                pos_enc = self.sign_inv_net(gb, pos_enc)
+            p = self.embedding_p(pos_enc)
+            if self.pe_aggregate == "concat":
+                h = self.embedding_hp(torch.cat([h, p], dim=-1))
+            else:
+                h = h + p
+        return h
+
+    def readout_head(self, gb, h):
+        hg = pool_any(gb, h, reduce=self.readout)
+        return self.mlp_readout(hg)[:, 0]
+
+    def forward(self, gb, pos_enc=None):
+        h = self.embed_inputs(gb, pos_enc)
+        for i in range(self.n_layers):
+            h = getattr(self, f"layer_{i}")(gb, h)
+        return self.readout_head(gb, h)
+
+
+def sign_inv_module(kind: str, hidden: int, phi_out: int, num_layers: int,
+                    k: int) -> nn.Module:
+    """sign_inv_net factory.  use_bn=True always, as the reference hardcodes
+    it for every sign_inv variant (without BN the 8-layer sum-aggregation phi
+    produces unbounded activations)."""
+    if kind == "gin":
+        return GINDeepSigns(hidden=hidden, phi_out=phi_out,
+                            num_layers=num_layers, k=k, use_bn=True)
+    items = {"masked_gin": 12, "gcn": 14, "gat": 14, "transformer": 16}
+    if kind in items:
+        raise NotImplementedError(
+            f"sign_inv_net {kind!r} is not ported yet (ROADMAP.md queue 1 "
+            f"item {items[kind]})")
+    raise ValueError(f"unknown sign_inv_net {kind!r}")
+
+
+_NOT_PORTED = {"GatedGCN": 11, "GAT": 14, "PNA": 13, "Transformer": 10}
+
+
+def gnn_model(name: str, **net_params) -> nn.Module:
+    """Model registry (the JAX package's `gnn_model`)."""
+    if name == "GIN":
+        return GINNet(**net_params)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP.md queue 1 item "
+            f"{_NOT_PORTED[name]})")
+    raise KeyError(name)

@@ -1,0 +1,54 @@
+"""Masked batch norm with the reference's (PyTorch) semantics.
+
+Port of signnet_basisnet_tpu/nn/norm.py:MaskedBatchNorm.  Statistics come from
+the rows where `mask` is 1 only; normalisation uses the biased variance and
+the running variance is updated with the unbiased one; momentum 0.1, eps
+1e-5; masked rows are zero on output.  Running statistics stay float32
+whatever the input type (the JAX package's bf16 mode keeps batch_stats f32).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+MOMENTUM = 0.1
+EPS = 1e-5
+
+
+class MaskedBatchNorm(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        self.features = features
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        d = self.features
+        x2 = x.reshape(-1, d)
+        m = None if mask is None else mask.reshape(-1, 1).to(x2.dtype)
+        if self.training:
+            if m is None:
+                cnt = torch.tensor(float(x2.shape[0]), dtype=x2.dtype,
+                                   device=x2.device)
+                mean = x2.mean(dim=0)
+                var = ((x2 - mean) ** 2).mean(dim=0)
+            else:
+                cnt = torch.clamp(m.sum(), min=1.0)
+                mean = (x2 * m).sum(dim=0) / cnt
+                var = (((x2 - mean) ** 2) * m).sum(dim=0) / cnt
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.running_mean.copy_(
+                    (1 - MOMENTUM) * self.running_mean + MOMENTUM * mean)
+                self.running_var.copy_(
+                    (1 - MOMENTUM) * self.running_var + MOMENTUM * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y2 = (x2 - mean) / torch.sqrt(var + EPS) * self.weight + self.bias
+        if m is not None:
+            y2 = y2 * m
+        return y2.reshape(x.shape[:-1] + (d,))

@@ -1,0 +1,3 @@
+from .laplacian import (adjacency_dense_np, sym_laplacian_np,
+                        unnormalized_laplacian_np)
+from .eigh import canonical_sign_np, eigh_np, lap_pe_np

@@ -1,0 +1,159 @@
+"""Command-line entry point: ZINC graph regression on one device.
+
+    python -m signnet_basisnet_tpu_torch.train_zinc \
+        --config configs/gin_zinc_signinv_gin.json [--device cpu] [key value ...]
+
+Port of the single-device path of signnet_basisnet_tpu/train_zinc.py: PE
+preprocessing -> model -> Adam + plateau LR -> epoch loop with val/test eval.
+The JAX package's configs are read as they are.  The run is on `cuda` unless
+`--device cpu` is given.  The aggregation backend is the config's
+(`data.agg_backend`): with `pallas_tile` the tile-local SpMM kernel runs on
+the card, and its plain version only where the tensors lie on the CPU.
+
+Not ported yet, and refused: train.mp > 1, checkpoint_dir/resume, LSPE and
+the Laplacian-eigvec loss, the non-lap_pe PE modes (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from .data import add_lap_pe, choose_budgets, iterate_graphbatches, \
+    load_zinc, pack_batches
+from .graph import from_arrays
+from .graph import segment as seg
+from .models import gnn_model
+from .training import (adam, build_steps, count_params, fit, load_config,
+                       make_zinc_predict)
+
+
+def prepare_data(cfg):
+    splits, real = load_zinc(cfg.data.data_dir,
+                             synthetic_fallback=cfg.data.synthetic_fallback,
+                             synth_sizes=(cfg.data.synth_train,
+                                          cfg.data.synth_eval,
+                                          cfg.data.synth_eval))
+    if cfg.data.pe_mode == "lap_pe":
+        for graphs in splits.values():
+            add_lap_pe(graphs, cfg.model.pos_enc_dim)
+    elif cfg.data.pe_mode != "none":
+        raise NotImplementedError(
+            f"data.pe_mode {cfg.data.pe_mode!r} is not ported yet "
+            "(ROADMAP.md queue 1 items 12 and 15)")
+    return splits, real
+
+
+def _refuse_unported(cfg):
+    if cfg.train.mp > 1 or cfg.train.num_microbatches > 1:
+        raise NotImplementedError(
+            "parallel training is not ported yet (ROADMAP.md queue 1 item 20)")
+    if cfg.train.checkpoint_dir or cfg.train.resume:
+        raise NotImplementedError(
+            "checkpoints are not ported yet (ROADMAP.md queue 1 item 9)")
+    if cfg.model.use_lspe or cfg.model.use_lapeig_loss:
+        raise NotImplementedError(
+            "LSPE is not ported yet (ROADMAP.md queue 1 item 15)")
+    if cfg.train.matmul_precision not in (None, "float32", "highest"):
+        raise NotImplementedError(
+            f"matmul_precision {cfg.train.matmul_precision!r}: the port runs "
+            "f32 matmuls in full f32 only")
+
+
+def run(cfg, device: str = "cuda", log=print):
+    """Train and evaluate as the config says; returns the FitResult."""
+    _refuse_unported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                               "the CPU")
+        # full f32 everywhere, as the JAX package's Precision.HIGHEST
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    splits, real = prepare_data(cfg)
+    log(f"dataset: ZINC ({'real' if real else 'synthetic'}) "
+        f"train={len(splits['train'])} val={len(splits['val'])} "
+        f"test={len(splits['test'])}")
+    seg.set_agg_backend(cfg.data.agg_backend)
+
+    tile = cfg.data.tile
+    nb, eb, gb_cnt = choose_budgets(splits["train"], cfg.train.batch_size,
+                                    slack=cfg.data.batch_slack,
+                                    align=cfg.data.batch_align, tile=tile)
+    k = cfg.model.pos_enc_dim
+    make_batches = lambda graphs: [
+        from_arrays(a).to(device) for a in pack_batches(
+            graphs, nb, eb, gb_cnt, shuffle=False, seed=0, k=k, tile=tile)]
+    val_batches = make_batches(splits["val"])
+    test_batches = make_batches(splits["test"])
+    log(f"batches: {nb} nodes, {eb} edges, {gb_cnt} graph slots"
+        + (f", tiles of {tile}" if tile else ""))
+
+    m = cfg.model
+    model = gnn_model(
+        m.model, hidden_dim=m.hidden_dim, out_dim=m.out_dim,
+        n_layers=m.n_layers, readout=m.readout,
+        in_feat_dropout=m.in_feat_dropout, dropout=m.dropout,
+        batch_norm=m.batch_norm, residual=m.residual, edge_feat=m.edge_feat,
+        pe_init=m.pe_init, lap_method=m.lap_method,
+        pos_enc_dim=m.pos_enc_dim, sign_inv_net=m.sign_inv_net,
+        sign_inv_layers=m.sign_inv_layers, phi_out_dim=m.phi_out_dim,
+        pe_aggregate=m.pe_aggregate, max_nodes=m.max_nodes, remat=m.remat,
+        seed=cfg.train.seed).to(device)
+    log(f"model: {m.model} params={count_params(model)} device={device}")
+
+    cdtype = (getattr(torch, cfg.train.compute_dtype)
+              if cfg.train.compute_dtype else None)
+    predict = make_zinc_predict(model, lap_method=m.lap_method,
+                                compute_dtype=cdtype)
+    optimizer = adam(model.parameters(), cfg.train.weight_decay)
+    train_step, eval_step = build_steps(model, predict, optimizer,
+                                        eval_bn_mode=cfg.train.eval_bn_mode)
+    # a background thread packs the next batches while the device computes
+    train_fn = lambda ep: (gb.to(device) for gb in iterate_graphbatches(
+        splits["train"], nb, eb, gb_cnt, shuffle=True,
+        seed=cfg.train.seed + ep, k=k, tile=tile, prefetch=4))
+
+    result = fit(
+        train_step, eval_step, train_batches_fn=train_fn,
+        val_batches_fn=lambda: val_batches,
+        test_batches_fn=lambda: test_batches,
+        epochs=cfg.train.epochs, init_lr=cfg.train.init_lr,
+        lr_reduce_factor=cfg.train.lr_reduce_factor,
+        lr_schedule_patience=cfg.train.lr_schedule_patience,
+        min_lr=cfg.train.min_lr, max_time_hours=cfg.train.max_time_hours,
+        log_every=cfg.train.print_epoch_interval, logger=log)
+    log(f"FINAL: test_mae={result.test_mae:.4f} val_mae={result.val_mae:.4f} "
+        f"epochs={result.epochs_run} time={(time.time() - t0) / 3600:.2f}h")
+    log(f"FINAL_BEST_VAL: test_mae={result.best_val_test_mae:.4f} "
+        f"val_mae={result.best_val_mae:.4f}")
+
+    if cfg.out_dir:
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        with open(os.path.join(cfg.out_dir, f"{cfg.name}_results.json"),
+                  "w") as f:
+            json.dump(dict(test_mae=result.test_mae, val_mae=result.val_mae,
+                           best_val_test_mae=result.best_val_test_mae,
+                           best_val_mae=result.best_val_mae,
+                           epochs=result.epochs_run, device=str(device),
+                           config=cfg.to_dict(), history=result.history),
+                      f, indent=2)
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+    run(load_config(args.config, args.overrides), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,219 @@
+"""Training harness: train/eval steps and the epoch loop.
+
+Port of signnet_basisnet_tpu/training/train.py for the ZINC path:
+`l1_graph_loss`, `make_zinc_predict` (with `compute_dtype`), `build_steps`
+(train/eval, `eval_bn_mode`), `evaluate` and `fit` (no checkpoint/resume yet).
+The model and the optimizer hold the state that the JAX `TrainState`
+carries; the LR is a run-time scalar set before every optimizer step.
+
+Mixed precision follows the JAX package, not `torch.autocast`: with
+`compute_dtype` the forward runs on a copy of every parameter cast to that
+type and on the batch with every float cast (BatchNorm included), while the
+master parameters, the optimizer, the loss and the BN running statistics
+stay float32.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..models.pe import apply_lap_method
+from .metrics import masked_l1
+from .optim import ReduceLROnPlateau, set_lr
+
+
+def count_params(model: torch.nn.Module) -> int:
+    return int(sum(p.numel() for p in model.parameters()))
+
+
+def _target(pred, gb):
+    y = gb.y
+    if pred.dim() == 1 and y.dim() == 2:
+        y = y[:, 0]
+    return y
+
+
+def l1_graph_loss(pred, gb):
+    return masked_l1(pred, _target(pred, gb), gb.graph_mask)
+
+
+def make_zinc_predict(model: torch.nn.Module, lap_method: str = "none",
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> Callable:
+    """predict(gb) -> [G] float32 scores: PE sign handling, then the net,
+    in `compute_dtype` when given (see the module docstring)."""
+
+    def predict(gb):
+        pos_enc = gb.eigvecs
+        if pos_enc is not None:
+            pos_enc = apply_lap_method(lap_method, pos_enc)
+        if compute_dtype is None:
+            return model(gb, pos_enc)
+        params = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
+        gbc = gb.cast_floats(compute_dtype)
+        pe = None if pos_enc is None else pos_enc.to(compute_dtype)
+        out = torch.func.functional_call(model, params, (gbc, pe))
+        return out.float()
+
+    return predict
+
+
+def build_steps(model: torch.nn.Module, predict: Callable,
+                optimizer: torch.optim.Optimizer,
+                eval_bn_mode: str = "running"):
+    """(train_step(gb, lr) -> metrics, eval_step(gb) -> sums).
+
+    eval_bn_mode: "running" normalises eval batches with the BN running
+    statistics (torch `model.eval()`); "batch" with the eval batch's own
+    statistics, discarding the running-stat updates.  The loss is the masked
+    L1 of the ZINC protocol.  Metrics stay on the device; `fit`/`evaluate`
+    fetch them once per epoch.
+    """
+    if eval_bn_mode not in ("running", "batch"):
+        raise ValueError(eval_bn_mode)
+
+    def train_step(gb, lr):
+        model.train()
+        pred = predict(gb)
+        loss = l1_graph_loss(pred, gb)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(optimizer, lr)
+        optimizer.step()
+        pred = pred.detach()
+        mae = masked_l1(pred, _target(pred, gb), gb.graph_mask)
+        return {"loss": loss.detach(), "mae": mae}
+
+    @torch.no_grad()
+    def eval_step(gb):
+        if eval_bn_mode == "batch":
+            saved = {k: v.clone() for k, v in model.named_buffers()}
+            model.train()
+            pred = predict(gb)
+            for k, v in model.named_buffers():
+                v.copy_(saved[k])
+        else:
+            model.eval()
+            pred = predict(gb)
+        loss = l1_graph_loss(pred, gb)
+        n = gb.graph_mask.sum()
+        # the loss is the MAE itself (L1), as in the JAX eval step
+        return {"loss_sum": loss * n, "mae_sum": loss * n, "n": n}
+
+    return train_step, eval_step
+
+
+@dataclass
+class FitResult:
+    history: list
+    test_mae: float
+    val_mae: float
+    epochs_run: int
+    wall_time: float
+    best_val_mae: float = float("nan")
+    best_val_test_mae: float = float("nan")
+    train_steps: int = 0
+    eval_steps: int = 0
+
+
+def evaluate(eval_step, batches) -> Dict[str, float]:
+    """Mean loss/MAE over `batches`, fetched from the device once."""
+    outs = [eval_step(gb) for gb in batches]
+    tot = {"loss_sum": 0.0, "mae_sum": 0.0, "n": 0.0}
+    if outs:
+        stacked = {k: torch.stack([o[k].float() for o in outs]).sum().item()
+                   for k in tot}
+        tot.update(stacked)
+    n = max(tot["n"], 1.0)
+    return {"loss": tot["loss_sum"] / n, "mae": tot["mae_sum"] / n,
+            "steps": len(outs)}
+
+
+def _peak_mem_mb() -> Optional[float]:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return torch.cuda.max_memory_allocated() / 2 ** 20
+    return None
+
+
+def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
+        test_batches_fn=None, *, epochs=1000, init_lr=1e-3,
+        lr_reduce_factor=0.5, lr_schedule_patience=25, min_lr=1e-6,
+        max_time_hours=12.0, log_every=5, logger=None) -> FitResult:
+    """Epoch loop with plateau LR, min-lr stop, wall-clock budget and a
+    graceful KeyboardInterrupt (the JAX `fit`, without checkpoints).
+
+    Each history record also holds `train_time` (seconds from the epoch's
+    start to its last train metric on the host) and `train_steps`.
+    """
+    sched = ReduceLROnPlateau(factor=lr_reduce_factor,
+                              patience=lr_schedule_patience,
+                              min_lr=min_lr, lr=init_lr)
+    history = []
+    t0 = time.time()
+    epochs_run = 0
+    train_steps = eval_steps = 0
+    best_val = float("inf")
+    best_val_mae = float("nan")
+    best_test = float("nan")
+    log = logger or (lambda msg: print(msg, flush=True))
+
+    def run_eval(batches):
+        nonlocal eval_steps
+        out = evaluate(eval_step, batches)
+        eval_steps += out["steps"]
+        return out
+
+    try:
+        for epoch in range(epochs):
+            te0 = time.time()
+            ms = [train_step(gb, sched.lr) for gb in train_batches_fn(epoch)]
+            nb = len(ms)
+            train_steps += nb
+            losses = (torch.stack([torch.stack([m["loss"], m["mae"]])
+                                   for m in ms]).cpu().numpy()
+                      if ms else np.zeros((0, 2)))
+            train_time = time.time() - te0
+            train_loss = float(losses[:, 0].sum()) / max(nb, 1)
+            train_mae = float(losses[:, 1].sum()) / max(nb, 1)
+            if not np.isfinite(train_loss):
+                log(f"ABORT: non-finite train loss at epoch {epoch}; stopping")
+                break
+            val = run_eval(val_batches_fn())
+            if val["loss"] <= best_val:
+                best_val = val["loss"]
+                best_val_mae = val["mae"]
+                if test_batches_fn is not None:
+                    best_test = run_eval(test_batches_fn())["mae"]
+            lr_now = sched.step(val["loss"])
+            epochs_run = epoch + 1
+            rec = dict(epoch=epoch, lr=lr_now, train_loss=train_loss,
+                       train_mae=train_mae, val_loss=val["loss"],
+                       val_mae=val["mae"], time=time.time() - te0,
+                       train_time=train_time, train_steps=nb)
+            history.append(rec)
+            if epoch % log_every == 0:
+                mem = _peak_mem_mb()
+                mem_s = f" peak_mem {mem:.0f}MB" if mem is not None else ""
+                log(f"epoch {epoch:4d} lr {lr_now:.2e} "
+                    f"train_mae {train_mae:.4f} val_mae {val['mae']:.4f} "
+                    f"({rec['time']:.1f}s){mem_s}")
+            if sched.converged:
+                log("converged: lr <= min_lr")
+                break
+            if (time.time() - t0) > max_time_hours * 3600:
+                log("stopping: max_time reached")
+                break
+    except KeyboardInterrupt:
+        log("interrupted: finishing with final eval")
+
+    val = run_eval(val_batches_fn())
+    test = (run_eval(test_batches_fn()) if test_batches_fn
+            else {"mae": float("nan")})
+    return FitResult(history=history, test_mae=test["mae"], val_mae=val["mae"],
+                     epochs_run=epochs_run, wall_time=time.time() - t0,
+                     best_val_mae=best_val_mae, best_val_test_mae=best_test,
+                     train_steps=train_steps, eval_steps=eval_steps)
