@@ -8,36 +8,52 @@ Phases, each printing its start and its seconds, with a synchronize after
 each so a stall shows where it happened:
 
 0. the card's name and power limit (nvidia-smi); build every kernel of the
-   main path from the checkout's sources (nvcc, -Xptxas -v summary);
+   ported paths from the checkout's sources, one nvcc per source, all
+   started together (nvcc seconds and the -Xptxas -v summary of each);
 1. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (f32 and bf16, forward and transposed, autograd, a batch
-   with non-tile-local edges), with the stated tolerance; CUDA-event times of
-   the kernel, the plain version and one library call (a yardstick, never
-   used by the port) beside the bound the card's memory and arithmetic rates
-   put on the same work;
-2. a reference check: one full-width train step on the card against the same
+   paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
+   and bf16, forward and transposed, autograd, a batch with non-tile-local
+   edges) and K2/K3 (the fused edge-softmax attention forward and backward;
+   f32 and bf16 at D = 8, 10 and 7, a batch with non-tile-local edges);
+   CUDA-event times of each kernel, of its plain version and, where one
+   exists, of one library call (a yardstick, never used by the port)
+   beside the bound the card's memory and arithmetic rates put on the same
+   work;
+2. the GIN path: one full-width train step on the card against the same
    step on the CPU (the kernels' plain versions) from the same weights; the
    warm step's time on one fixed batch, f32 and bf16 in turns, with the
-   profiler's device share; then the main path itself, the flagship
-   trainer (configs/gin_zinc_signinv_gin.json with data.agg_backend
-   pallas_tile: GIN 16x95,
-   SignNet k=8 with an 8-layer GIN phi, 128-graph batches in 256-node tiles,
-   synthetic ZINC) through train_zinc.run in f32, with the kernel launch
-   counts read against 47 per train step and 24 per eval step;
-3. the same trainer in bf16 compute for a few steps.
+   profiler's device share; then the flagship trainer
+   (configs/gin_zinc_signinv_gin.json with data.agg_backend pallas_tile:
+   GIN 16x95, SignNet k=8 with an 8-layer GIN phi, 128-graph batches in
+   256-node tiles, synthetic ZINC) through train_zinc.run in f32, with the
+   launch counts read against 47 K1 per train step and 24 per eval step
+   (and no K2/K3);
+3. the same trainer in bf16 compute for a few steps;
+4. the Transformer path, the same three checks on
+   configs/transformer_zinc_signinv_gin.json as shipped (tile_dense:
+   TransformerNet 10x64 with 8 heads, LayerNorm and BatchNorm, SignNet
+   k=16 with an 8-layer GIN phi): card vs CPU step, warm steps with the
+   K2/K3 share of the device time, then train_zinc.run in f32 and bf16
+   with the launch counts read against 10 K2 and 10 K3 per train step, 10
+   K2 per eval step and no K1.
 
 The last two lines are the kernels' JSON record and the result line.  Any
 failure raises (exit code 1); without a card it exits 2 and prints no
 result.  Imports no JAX and nothing of the JAX package.
 """
+import contextlib
+import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join("configs", "gin_zinc_signinv_gin.json")
+TRANSFORMER_CONFIG = os.path.join("configs",
+                                  "transformer_zinc_signinv_gin.json")
 OUT_DIR = os.path.join("out", "chip_smoke")
 
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 bytes/s and
@@ -138,10 +154,10 @@ def _interleaved_ms(steps, batch, repeats=5, window=10):
     return ms
 
 
-def _profile_steps(step, batch, kernel, steps=3):
+def _profile_steps(step, batch, kernels, steps=3):
     """From torch.profiler over `steps` warm train steps: the device time
-    and busy share per step, the device ops per step and `kernel`'s
-    share."""
+    and busy share per step, the device ops per step and each of `kernels`'
+    share of the device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -162,16 +178,145 @@ def _profile_steps(step, batch, kernel, steps=3):
     busy = sum(e.self_device_time_total for e in dev)
     if not busy:
         return "not measured (no device events in the trace)"
-    ours = sum(e.self_device_time_total for e in dev if kernel in e.key)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     return dict(
         wall_ms_per_step=round(wall_us / steps / 1e3, 2),
         device_us_per_step=round(busy / steps, 1),
         device_busy_share=round(busy / wall_us, 3),
         device_ops_per_step=round(sum(e.count for e in dev) / steps, 1),
-        kernel_share_of_device=round(ours / busy, 3),
+        kernel_share_of_device={
+            k: round(sum(e.self_device_time_total for e in dev
+                         if k in e.key) / busy, 4) for k in kernels},
         top=[(e.key[:60], round(e.self_device_time_total / steps, 1))
              for e in top])
+
+
+def _ptxas_summary(report):
+    """One line per compiled kernel from nvcc's -Xptxas -v report: its
+    name and type, registers, spills."""
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)(Lb([01]))?",
+                      line)
+        if "Compiling entry function" in line and m:
+            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
+                    + (f", transpose={m.group(4)}" if m.group(3) else "")
+                    + ">")
+        elif name and "spill" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill}")
+            name = None
+    return out
+
+
+def _build_all(modules):
+    """Build every kernel library at once, one nvcc per source, all started
+    together (each build runs in a thread; nvcc runs outside the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(modules)) as pool:
+        for f in [pool.submit(m.build) for m in modules]:
+            f.result()
+
+
+@contextlib.contextmanager
+def _attention_plain_on_card():
+    """The Transformer layers' attention through its plain version, not
+    K2/K3, while the block runs: the card's own plain path."""
+    from signnet_basisnet_tpu_torch.models import conv
+    from signnet_basisnet_tpu_torch.ops import edge_softmax_attention_plain
+    tiled = conv.edge_softmax_attention_tiled
+    conv.edge_softmax_attention_tiled = (
+        lambda *args: edge_softmax_attention_plain(*args[:-1]))
+    try:
+        yield
+    finally:
+        conv.edge_softmax_attention_tiled = tiled
+
+
+def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
+                            plain_on_card=None):
+    """One train step from the same weights: on the card in f32, on the CPU
+    (the kernels' plain versions) in f32 and in f64.  The f64 step stands
+    for the exact one; the card's f32 error against it must stay within
+    10x of the CPU's f32 error, tensor by tensor (float noise grows through
+    the BatchNorm'd layers on both).
+
+    With `plain_on_card` (a context that swaps the kernels for their plain
+    versions) the step also runs on the card without the kernels, and the
+    CPU's error on a tensor is taken as no less than the CPU's median
+    relative error over all tensors times the tensor's largest gradient: a
+    ReLU or clamp that sits within float noise of its kink sends the
+    gradient of the layers below it one way or the other, so one run lands
+    near the f64 step by luck and another does not, with or without the
+    kernels (the card's plain run shows which way it fell).  Returns the
+    card's (step, batch)."""
+    import numpy as np
+    import torch
+    from signnet_basisnet_tpu_torch.graph import from_arrays
+    from signnet_basisnet_tpu_torch.models import gnn_model
+    runs = [("card", "cuda", torch.float32, contextlib.nullcontext)]
+    if plain_on_card is not None:
+        runs.append(("card_plain", "cuda", torch.float32, plain_on_card))
+    runs += [("cpu", "cpu", torch.float32, contextlib.nullcontext),
+             ("cpu_f64", "cpu", torch.float64, contextlib.nullcontext)]
+    losses, grads = {}, {}
+    for run_name, d, dt, ctx in runs:
+        model = gnn_model(model_name, **net).to(d, dt)
+        step = make_step(model)
+        batch = from_arrays(arrays).to(d).cast_floats(dt)
+        with ctx():
+            losses[run_name] = float(step(batch, 1e-3)["loss"])
+        grads[run_name] = {n: p.grad.detach().cpu().double() for n, p in
+                           model.named_parameters() if p.grad is not None}
+        if run_name == "card":
+            card_step = (step, batch)
+    print("  loss " + ", ".join(f"{k} {v:.9f}" for k, v in losses.items()),
+          flush=True)
+    if not np.isfinite(losses["card"]) or abs(
+            losses["card"] - losses["cpu_f64"]) > 10 * abs(
+            losses["cpu"] - losses["cpu_f64"]) + 1e-6:
+        raise AssertionError("card and CPU losses disagree")
+    errs = {n: {k: float((grads[k][n] - g).abs().max()) for k in grads
+                if k != "cpu_f64"} for n, g in grads["cpu_f64"].items()}
+    scale = {n: float(g.abs().max()) for n, g in grads["cpu_f64"].items()}
+    typical = 0.0
+    if plain_on_card is not None:
+        typical = float(np.median([e["cpu"] / s for n, e in errs.items()
+                                   if (s := scale[n]) > 0]))
+        print(f"  CPU f32 error, median over tensors relative to the "
+              f"tensor's largest gradient: {typical:.3e}", flush=True)
+    worst_plain = (0.0, "")
+    ratio, ratio_cpu = {}, {}
+    for n, e in errs.items():
+        floor = 1e-6 * scale[n] + 1e-12
+        bar = 10 * e["cpu"] + floor
+        ratio_cpu[n] = e["card"] / bar
+        ratio[n] = e["card"] / (10 * max(e["cpu"], typical * scale[n])
+                                + floor)
+        if "card_plain" in e:
+            worst_plain = max(worst_plain, (e["card_plain"] / bar, n))
+    worst = max((r, n) for n, r in ratio.items())
+    worst_cpu = max((r, n) for n, r in ratio_cpu.items())
+    print(f"  {len(errs)} gradient tensors; the five nearest their bar:",
+          flush=True)
+    for n in sorted(ratio, key=lambda n: -ratio[n])[:5]:
+        print(f"  {n}: max|g| {scale[n]:.3e} f32 error " + " ".join(
+            f"{k} {v:.3e}" for k, v in errs[n].items())
+            + f"; card error / bar {ratio[n]:.3f}", flush=True)
+    print(f"  grads: worst card error / (10x the CPU's error on the tensor) "
+          f"{worst_cpu[0]:.3f} at {worst_cpu[1]}", flush=True)
+    if plain_on_card is not None:
+        print(f"  grads: the same for the card's plain run (no kernels) "
+              f"{worst_plain[0]:.3f} at {worst_plain[1]}", flush=True)
+        print(f"  grads: worst card error / (10x the larger of the CPU's "
+              f"error and its median relative error) {worst[0]:.3f} at "
+              f"{worst[1]}", flush=True)
+    if worst[0] > 1:
+        raise AssertionError(f"grad {worst[1]}: the card's f32 error is "
+                             "beyond 10x the CPU's")
+    return card_step
 
 
 def main():
@@ -188,8 +333,13 @@ def main():
     from signnet_basisnet_tpu_torch.graph import segment as seg
     from signnet_basisnet_tpu_torch.models import gnn_model
     from signnet_basisnet_tpu_torch.models.conv import batch_csr
+    from signnet_basisnet_tpu_torch.ops import _nvcc
+    attn = importlib.import_module(
+        "signnet_basisnet_tpu_torch.ops.edge_attention")
+    spmm_mod = importlib.import_module(
+        "signnet_basisnet_tpu_torch.ops.spmm_tiled")
     from signnet_basisnet_tpu_torch.ops.spmm_tiled import (
-        _launch, _tile_mask, build, build_info, spmm_tiled, spmm_tiled_plain)
+        _launch, _tile_mask, spmm_tiled, spmm_tiled_plain)
     from signnet_basisnet_tpu_torch.train_zinc import run
     from signnet_basisnet_tpu_torch.training import (adam, build_steps,
                                                      load_config,
@@ -210,12 +360,14 @@ def main():
         record["card"] = smi
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
-        build()
-        print(f"spmm_tiled: nvcc {build_info['seconds']:.1f} s -> "
-              f"{os.path.relpath(build_info['path'], ROOT)}", flush=True)
-        for line in build_info["ptxas"].splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+        _build_all([spmm_mod, attn])
+        for name, info in _nvcc.build_info.items():
+            print(f"{name}: nvcc {info['seconds']:.1f} s -> "
+                  f"{os.path.relpath(info['path'], ROOT)}", flush=True)
+            for line in _ptxas_summary(info["ptxas"]):
+                print(f"  ptxas: {line}", flush=True)
+        record["nvcc_seconds"] = {k: v["seconds"]
+                                  for k, v in _nvcc.build_info.items()}
 
     # ---------------------------------------------------------------- 1
     with Phase("1 kernel vs plain"):
@@ -361,6 +513,194 @@ def main():
                       bound_transposed_ms=bounds[True]["bound_ms"])
         del x, flush, a_csr, lib
 
+    with Phase("1b attention kernels (K2, K3) vs plain"):
+        tiled = attn.edge_softmax_attention_tiled
+        plain = attn.edge_softmax_attention_plain
+        # K2's output: f32, 1e-5 (f32 sums in other orders); bf16, one
+        # bf16 ulp (2**-7 relative) + 1e-3.  K3 at its launch, against
+        # `edge_attention_bwd_plain` from the same ghat and c: f32 results
+        # from either input type, 1e-4 relative + 1e-5 of the tensor's
+        # largest magnitude (at least 1e-5), since both subtract c from
+        # sums of that magnitude and lose a digit to the cancellation.  The
+        # whole autograd path (K2, the glue, K3) against autograd through
+        # the plain version, in f32, to the same
+        errs = {"K2": 0.0, "K3": 0.0}
+        f32_tol, bf16_tol = (1e-5, 1e-5), (2 ** -7, 1e-3)
+        grad_tol = (1e-4, None)
+
+        def attn_check(kname, name, got, ref, tol):
+            rtol, atol = tol
+            ref = ref.detach().float()
+            if atol is None:
+                atol = 1e-5 * max(1.0, float(ref.abs().max()))
+            err = (got.detach().float() - ref).abs()
+            errs[kname] = max(errs[kname], float(err.max()))
+            print(f"  {name}: max_abs_err {float(err.max()):.3e} "
+                  f"(tol {atol:g} + {rtol:g}*|ref|)", flush=True)
+            if bool((err > atol + rtol * ref.abs()).any()):
+                raise AssertionError(f"{name}: kernel disagrees with its "
+                                     "plain version")
+
+        def attn_inputs(H, D, dtype):
+            # Q scaled by 3: about a tenth of the scores lie beyond +-5,
+            # where the clamp passes no gradient
+            mk = lambda *shape: torch.randn(*shape, device=dev,
+                                            generator=gen)
+            qkve = [mk(nb, H, D) * 3, mk(nb, H, D), mk(nb, H, D),
+                    mk(eb, H, D)]
+            return [t.to(dtype).requires_grad_(True) for t in qkve]
+
+        def fwd_bwd(fn, qkve, g):
+            out = fn(*qkve)
+            return [out] + list(torch.autograd.grad(out, qkve,
+                                                    g.to(out.dtype)))
+
+        names = ("dQ", "dK", "dV", "dE1")
+
+        def attn_compare(tag, edge_args, edge_csr_, H, D, dtype, autograd):
+            qkve = attn_inputs(H, D, dtype)
+            g = torch.randn(nb, H, D, device=dev, generator=gen)
+            Q, K, V, E1 = (t.detach() for t in qkve)
+            out, den = attn._launch_fwd(Q, K, V, E1, edge_args[0],
+                                        edge_args[2], *edge_args[3:],
+                                        edge_csr_[0], bn)
+            attn_check("K2", f"K2 {tag} out", out,
+                       plain(Q, K, V, E1, *edge_args, bn),
+                       f32_tol if dtype == torch.float32 else bf16_tol)
+            ghat = g / (den[:, :, None] + 1e-6)
+            c = (out.float() * ghat).sum(-1)
+            got = attn._launch_bwd(Q, K, V, E1, ghat, c, *edge_args,
+                                   edge_csr_, bn)
+            want = attn.edge_attention_bwd_plain(Q, K, V, E1, ghat, c,
+                                                 *edge_args, bn)
+            for nm, a, b in zip(names, got, want):
+                attn_check("K3", f"K3 {tag} {nm}", a, b, grad_tol)
+            if autograd:
+                got = fwd_bwd(lambda *a: tiled(*a, *edge_args, bn, edge_csr_),
+                              qkve, g)
+                ref = fwd_bwd(lambda *a: plain(*a, *edge_args, bn), qkve, g)
+                for nm, a, b in zip(("out",) + names, got, ref):
+                    attn_check("K3" if nm != "out" else "K2",
+                               f"autograd {tag} {nm}", a, b, grad_tol)
+
+        for H, D in ((8, 8), (8, 10), (8, 7)):
+            for dtype in (torch.float32, torch.bfloat16):
+                attn_compare(f"H={H} D={D} {str(dtype)[6:]}", args, csr, H,
+                             D, dtype, autograd=dtype == torch.float32)
+        # the batch with non-tile-local edges of phase 1: dropped by both
+        attn_compare("non-local edges H=8 D=8 float32", far_args, far_csr,
+                     8, 8, torch.float32, autograd=True)
+
+        # times at the slice's shapes: H = 8 heads of D = 8, f32
+        H, D = 8, 8
+        F = H * D
+        Q, K, V, E1 = (t.detach() for t in attn_inputs(H, D, torch.float32))
+        flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+        fwd_args = (Q, K, V, E1, gb.senders, gb.edge_mask, *args[3:],
+                    csr[0], bn)
+        k2_ms = _cuda_time_ms(lambda: attn._launch_fwd(*fwd_args),
+                              flush=flush)
+        out, den = attn._launch_fwd(*fwd_args)
+        g = torch.randn(nb, H, D, device=dev, generator=gen)
+        ghat = g / (den[:, :, None] + 1e-6)
+        c = (out * ghat).sum(-1)
+        bwd_args = (Q, K, V, E1, ghat, c, gb.senders, gb.receivers,
+                    gb.edge_mask, *args[3:], csr, bn)
+        k3_ms = _cuda_time_ms(lambda: attn._launch_bwd(*bwd_args),
+                              flush=flush)
+        # the same launches on the batch without its padding edges (weight
+        # 0, all on its last node and last in the edge arrays, so that one
+        # row's warp walks them 32 at a time): how much of each kernel's
+        # time that row's tail takes
+        n_real = int((gb.edge_mask != 0).sum())
+        assert bool((gb.edge_mask[:n_real] != 0).all())
+        cut = [a[:n_real].contiguous() for a in (gb.senders, gb.receivers,
+                                                 gb.edge_mask, E1)]
+        lims = [torch.clamp(a, max=n_real) for a in args[3:]]
+        csr_cut = edge_csr(cut[0], cut[1], nb)
+        k2_cut_ms = _cuda_time_ms(lambda: attn._launch_fwd(
+            Q, K, V, cut[3], cut[0], cut[2], *lims, csr_cut[0], bn),
+            flush=flush)
+        k3_cut_ms = _cuda_time_ms(lambda: attn._launch_bwd(
+            Q, K, V, cut[3], ghat, c, *cut[:3], *lims, csr_cut, bn),
+            flush=flush)
+        print(f"  without the {eb - n_real} padding edges: K2 "
+              f"{k2_cut_ms:.4f} ms, K3 {k3_cut_ms:.4f} ms", flush=True)
+        record.update(attention_no_padding_ms={"K2": k2_cut_ms,
+                                               "K3": k3_cut_ms})
+        k2_plain_ms = _cuda_time_ms(lambda: plain(Q, K, V, E1, *args, bn),
+                                    flush=flush)
+        k3_plain_ms = _cuda_time_ms(
+            lambda: attn.edge_attention_bwd_plain(
+                Q, K, V, E1, ghat, c, *args, bn), flush=flush)
+        # bounds of this batch's work.  Bytes: each input read once where
+        # the counted edges need it (Q at the rows they reach as
+        # destinations, K and V as sources, E1 and ghat/c per counted edge
+        # and destination row), each output written once at every row or
+        # edge slot, and the index arrays each kernel reads.  Operations
+        # (f32, outside the tensor cores), per counted edge: K2 the F
+        # products K*Q*E1 (2 each), their per-head sums, the weighted V sum
+        # (2 each) and ~5 per head for clamp, exp and den; K3 both passes'
+        # recomputed scores and V.ghat sums (6 F) and their four gradient
+        # products (7 F), ~12 per head
+        ok = _tile_mask(gb.senders, gb.receivers, *args[3:], bn) & (
+            gb.edge_mask != 0)
+        n_counted = int(ok.sum())
+        dst_rows = int(torch.unique(gb.receivers[ok]).numel())
+        src_rows = int(torch.unique(gb.senders[ok]).numel())
+        fb = 4
+        k2_bytes = ((dst_rows + 2 * src_rows + n_counted) * F * fb
+                    + nb * F * fb + nb * H * 4
+                    + (2 * eb + nb + 1 + 2 * n_tiles) * 4)
+        k2_ops = n_counted * (5 * F + 5 * H) + nb * F
+        k3_bytes = ((dst_rows + 2 * src_rows + n_counted) * F * fb
+                    + dst_rows * (F + H) * 4 + 3 * nb * F * 4 + eb * F * 4
+                    + (4 * eb + 2 * (nb + 1) + 2 * n_tiles) * 4)
+        k3_ops = n_counted * (20 * F + 12 * H) + nb * F
+        attn_bounds = {}
+        for kname, nbytes, ops_ in (("K2", k2_bytes, k2_ops),
+                                    ("K3", k3_bytes, k3_ops)):
+            t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_o = ops_ / PEAK_F32_FLOP_PER_S * 1e3
+            attn_bounds[kname] = dict(
+                bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, ops=ops_)
+        for kname, k_ms, p_ms in (("K2", k2_ms, k2_plain_ms),
+                                  ("K3", k3_ms, k3_plain_ms)):
+            b = attn_bounds[kname]
+            print(f"{kname} H=8 D=8 f32: kernel_ms {k_ms:.4f}, plain_ms "
+                  f"{p_ms:.4f}, bound {b['bound_ms'] * 1e3:.2f} us by "
+                  f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
+                  f"{b['ops'] / 1e6:.2f} MFLOP; {n_counted} counted edges, "
+                  f"{dst_rows} destination and {src_rows} source rows); "
+                  f"kernel / bound {k_ms / b['bound_ms']:.2f}", flush=True)
+        prof = {kname: _profiled_kernel_us(fn, kn) for kname, fn, kn in (
+            ("K2", lambda: attn._launch_fwd(*fwd_args), "attn_fwd_kernel"),
+            ("K3", lambda: attn._launch_bwd(*bwd_args), "attn_bwd_kernel"))}
+        print(f"  profiler (warm L2): {prof} us per launch", flush=True)
+        record.update(attention_profiler_us_warm=prof,
+                      attention_bounds=attn_bounds)
+        src = "signnet_basisnet_tpu_torch/ops/csrc/edge_attention.cu"
+        tpu_src = "signnet_basisnet_tpu/ops/pallas_attention.py"
+        kern2 = dict(name="edge_attention_fwd", route="cuda", source=src,
+                     replaces=f"{tpu_src}:177",
+                     launches=None, max_abs_err=errs["K2"], ms=k2_ms,
+                     plain_ms=k2_plain_ms,
+                     bound_ms=attn_bounds["K2"]["bound_ms"],
+                     bound_by=attn_bounds["K2"]["bound_by"], library_ms=None)
+        kern3 = dict(name="edge_attention_bwd", route="cuda", source=src,
+                     replaces=f"{tpu_src}:385",
+                     launches=None, max_abs_err=errs["K3"], ms=k3_ms,
+                     plain_ms=k3_plain_ms,
+                     bound_ms=attn_bounds["K3"]["bound_ms"],
+                     bound_by=attn_bounds["K3"]["bound_by"], library_ms=None)
+        del flush
+
+    def reset_counts():
+        spmm_tiled.launches = 0
+        tiled.launches_fwd = tiled.launches_bwd = 0
+
     # ---------------------------------------------------------------- 2
     def trainer_cfg(extra):
         return load_config(CONFIG, [
@@ -369,11 +709,8 @@ def main():
             "out_dir", OUT_DIR] + extra)
 
     with Phase("2a full-width step, card vs CPU"):
-        # one train step from the same weights through K1: on the card in
-        # f32, and on the CPU (K1's plain version) in f32 and in f64.  The
-        # f64 step stands for the exact one; the card's f32 error against
-        # it must stay within 10x of the CPU's f32 error, tensor by tensor
-        # (float noise grows through 24 BatchNorm'd layers on both)
+        # one train step from the same weights through K1 (24 BatchNorm'd
+        # GIN layers), on the card and on the CPU
         cfg = trainer_cfg([])
         m = cfg.model
         net = dict(hidden_dim=m.hidden_dim, out_dim=m.out_dim,
@@ -382,39 +719,10 @@ def main():
                    phi_out_dim=m.phi_out_dim, pe_aggregate=m.pe_aggregate,
                    seed=cfg.train.seed)
         seg.set_agg_backend("pallas_tile")
-        losses, grads = {}, {}
-        for run_name, d, dt in (("card", "cuda", torch.float32),
-                                ("cpu", "cpu", torch.float32),
-                                ("cpu_f64", "cpu", torch.float64)):
-            model = gnn_model("GIN", **net).to(d, dt)
-            step, _ = build_steps(model, make_zinc_predict(model, "sign_inv"),
-                                  adam(model.parameters()))
-            batch = from_arrays(arrays).to(d).cast_floats(dt)
-            losses[run_name] = float(step(batch, 1e-3)["loss"])
-            grads[run_name] = {n: p.grad.detach().cpu().double() for n, p in
-                               model.named_parameters() if p.grad is not None}
-            if run_name == "card":
-                card_step = (step, batch)
-        print("  loss " + ", ".join(f"{k} {v:.9f}" for k, v in
-                                    losses.items()), flush=True)
-        if not np.isfinite(losses["card"]) or abs(
-                losses["card"] - losses["cpu_f64"]) > 10 * abs(
-                losses["cpu"] - losses["cpu_f64"]) + 1e-6:
-            raise AssertionError("card and CPU losses disagree")
-        worst = (0.0, "")
-        for n, g in grads["cpu_f64"].items():
-            e_card = float((grads["card"][n] - g).abs().max())
-            e_cpu = float((grads["cpu"][n] - g).abs().max())
-            tol = 10 * e_cpu + 1e-6 * float(g.abs().max()) + 1e-12
-            worst = max(worst, (e_card / tol, n))
-            print(f"  {n}: max|g| {float(g.abs().max()):.3e} f32 error "
-                  f"card {e_card:.3e} cpu {e_cpu:.3e}", flush=True)
-        print(f"  grads: worst card error / tol {worst[0]:.3f} at {worst[1]}",
-              flush=True)
-        if worst[0] > 1:
-            raise AssertionError(f"grad {worst[1]}: the card's f32 error is "
-                                 "beyond 10x the CPU's")
-        del model, step, grads
+        card_step = _check_step_card_vs_cpu(
+            "GIN", net, arrays, lambda model: build_steps(
+                model, make_zinc_predict(model, "sign_inv"),
+                adam(model.parameters()))[0])
 
     with Phase("2b warm step, f32 and bf16 interleaved"):
         # the warm step on one fixed batch (no input pipeline), f32 and
@@ -435,7 +743,7 @@ def main():
                   f"{[round(t, 2) for t in v]}", flush=True)
             record[f"warm_{name}_step_ms"] = v
         for name, step in (("f32", f32_step), ("bf16", bf16_step)):
-            prof = _profile_steps(step, batch, "spmm_tiled_kernel")
+            prof = _profile_steps(step, batch, ["spmm_tiled_kernel"])
             print(f"  profiler, {name}: {prof}", flush=True)
             record[f"warm_{name}_step_profile"] = prof
         del bf16_model, bf16_step, f32_step, card_step
@@ -447,11 +755,13 @@ def main():
         # eigenvector stack and needs no gradient: 47 per train step
         per_eval = cfg.model.n_layers + cfg.model.sign_inv_layers
         per_train = 2 * per_eval - 1
-        spmm_tiled.launches = 0
+        reset_counts()
         res = run(cfg, device="cuda", log=lambda s: print("  " + s,
                                                           flush=True))
         torch.cuda.synchronize()
         launches = spmm_tiled.launches
+        if tiled.launches_fwd or tiled.launches_bwd:
+            raise AssertionError("the GIN path launched K2/K3")
         expect = per_train * res.train_steps + per_eval * res.eval_steps
         print(f"  spmm_tiled launches {launches}, expected {per_train} x "
               f"{res.train_steps} train steps + {per_eval} x "
@@ -479,7 +789,7 @@ def main():
         cfg = trainer_cfg(["train.epochs", "2", "train.compute_dtype",
                            "bfloat16", "data.synth_train", "384",
                            "name", "bf16"])
-        spmm_tiled.launches = 0
+        reset_counts()
         res = run(cfg, device="cuda", log=lambda s: print("  " + s,
                                                           flush=True))
         torch.cuda.synchronize()
@@ -488,6 +798,8 @@ def main():
               f"{expect}", flush=True)
         if spmm_tiled.launches != expect:
             raise AssertionError("bf16 path: wrong K1 launch count")
+        if tiled.launches_fwd or tiled.launches_bwd:
+            raise AssertionError("the GIN path launched K2/K3")
         h = res.history[-1]
         if not np.isfinite([h["train_loss"], h["val_mae"], res.test_mae]).all():
             raise AssertionError(f"bf16: non-finite metrics {res.history}")
@@ -497,10 +809,100 @@ def main():
               flush=True)
         record.update(bf16_step_ms=step_ms, bf16_history=res.history)
 
-    record["kernels"] = [kern]
+    # ---------------------------------------------------------------- 4
+    def transformer_cfg(extra):
+        return load_config(TRANSFORMER_CONFIG, [
+            "data.synth_train", "512", "data.synth_eval", "128",
+            "train.print_epoch_interval", "1", "out_dir", OUT_DIR] + extra)
+
+    with Phase("4a Transformer full-width step, card vs CPU"):
+        # the shipped config: tile_dense, so the phi's aggregations are
+        # block-adjacency matmuls and every attention goes through K2/K3
+        cfg = transformer_cfg([])
+        m = cfg.model
+        k = m.pos_enc_dim
+        gs_t = synthetic_zinc(512, 0, 0, seed=0)["train"]
+        add_lap_pe(gs_t, k)
+        arrays_t = pack_batches(gs_t, nb, eb, gc, k=k, tile=256)[0]
+        tnet = dict(hidden_dim=m.hidden_dim, out_dim=m.out_dim,
+                    n_layers=m.n_layers, num_heads=m.num_heads,
+                    layer_norm=m.layer_norm, pos_enc_dim=k,
+                    lap_method=m.lap_method,
+                    sign_inv_layers=m.sign_inv_layers,
+                    phi_out_dim=m.phi_out_dim, pe_aggregate=m.pe_aggregate,
+                    seed=cfg.train.seed)
+        seg.set_agg_backend(cfg.data.agg_backend)
+        t_step, t_batch = _check_step_card_vs_cpu(
+            "Transformer", tnet, arrays_t, lambda model: build_steps(
+                model, make_zinc_predict(model, m.lap_method),
+                adam(model.parameters()))[0],
+            plain_on_card=_attention_plain_on_card)
+
+    with Phase("4b Transformer warm step, f32 and bf16 interleaved"):
+        bf16_model = gnn_model("Transformer", **tnet).to(dev)
+        bf16_step, _ = build_steps(
+            bf16_model, make_zinc_predict(bf16_model, m.lap_method,
+                                          compute_dtype=torch.bfloat16),
+            adam(bf16_model.parameters()))
+        ms = _interleaved_ms({"f32": t_step, "bf16": bf16_step}, t_batch)
+        for name, v in ms.items():
+            print(f"  warm Transformer {name} step (host clock, {len(v)} "
+                  f"windows of 10 steps): median {float(np.median(v)):.2f} "
+                  f"ms, min {min(v):.2f}, max {max(v):.2f}; windows "
+                  f"{[round(t, 2) for t in v]}", flush=True)
+            record[f"transformer_warm_{name}_step_ms"] = v
+        for name, step in (("f32", t_step), ("bf16", bf16_step)):
+            prof = _profile_steps(step, t_batch, ["attn_fwd_kernel",
+                                                  "attn_bwd_kernel"])
+            print(f"  profiler, Transformer {name}: {prof}", flush=True)
+            record[f"transformer_warm_{name}_step_profile"] = prof
+        del bf16_model, bf16_step, t_step, t_batch
+
+    layers = cfg.model.n_layers
+    for name, extra in (("f32", ["data.synth_train", "512"]),
+                        ("bf16", ["train.compute_dtype", "bfloat16",
+                                  "data.synth_train", "384"])):
+        with Phase(f"4c Transformer main path {name} (train_zinc, "
+                   f"{cfg.data.agg_backend})"):
+            tcfg = transformer_cfg(extra + ["train.epochs", "2", "name",
+                                            f"transformer_{name}"])
+            reset_counts()
+            res = run(tcfg, device="cuda", log=lambda s: print("  " + s,
+                                                               flush=True))
+            torch.cuda.synchronize()
+            # one K2 per layer per forward, one K3 per layer per backward
+            want = (layers * (res.train_steps + res.eval_steps),
+                    layers * res.train_steps, 0)
+            got = (tiled.launches_fwd, tiled.launches_bwd,
+                   spmm_tiled.launches)
+            print(f"  K2 launches {got[0]}, K3 launches {got[1]}, K1 "
+                  f"launches {got[2]}; expected {want} for "
+                  f"{res.train_steps} train and {res.eval_steps} eval "
+                  "steps", flush=True)
+            if got != want:
+                raise AssertionError(f"the Transformer path did not launch "
+                                     f"{layers} K2 and K3 per train step, "
+                                     f"{layers} K2 per eval step, no K1")
+            h = res.history[-1]
+            if (res.epochs_run != 2 or not all(
+                    np.isfinite([r["train_loss"], r["val_mae"]]).all()
+                    for r in res.history) or not np.isfinite(res.test_mae)):
+                raise AssertionError(f"non-finite or missing metrics: "
+                                     f"{res.history}")
+            step_ms = h["train_time"] / h["train_steps"] * 1e3
+            print(f"  Transformer {name} step time (epoch 2, "
+                  f"{h['train_steps']} steps, host clock to the last loss "
+                  f"on the host): {step_ms:.2f} ms", flush=True)
+            record[f"transformer_{name}_step_ms"] = step_ms
+            record[f"transformer_{name}_history"] = res.history
+            if name == "f32":
+                kern2["launches"], kern3["launches"] = got[:2]
+
+    kernels = [kern, kern2, kern3]
+    record["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=float)
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,6 @@
-from .conv import GINConv, neighbor_sum, node_mask_like, pool_any
+from .conv import (GINConv, GraphTransformerAttention, GraphTransformerLayer,
+                   neighbor_sum, node_mask_like, pool_any)
 from .pe import apply_lap_method
 from .signnet import GINDeepSigns, KChannelGNN, sign_fuse, sign_unfuse
-from .zinc_models import GINNet, gnn_model, sign_inv_module
+from .zinc_models import (GINNet, TransformerNet, ZincNet, gnn_model,
+                          sign_inv_module)

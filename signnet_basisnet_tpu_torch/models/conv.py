@@ -1,16 +1,21 @@
-"""Graph convolution on padded batched graphs: the GIN path.
+"""Graph convolution on padded batched graphs: the GIN and Transformer paths.
 
 Port of signnet_basisnet_tpu/models/conv.py:26-58,104-125 (`neighbor_sum`,
-`node_mask_like`, `pool_any`, `GINConv`).  The other layers of that file
-(GINE, GCN, GAT, GatedGCN, PNA, Transformer) are later slices of the port
-(ROADMAP.md queue 1).
+`node_mask_like`, `pool_any`, `GINConv`) and :682-811
+(`GraphTransformerAttention`, `GraphTransformerLayer`, sparse path).  The
+other layers of that file (GINE, GCN, GAT, GatedGCN, PNA) and the
+full-graph transformer are later slices of the port (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..graph import CSR_KEYS, segment as seg
-from ..ops import spmm_tile_dense, spmm_tiled
+from ..nn.init import Linear
+from ..nn.norm import MaskedBatchNorm, MaskedLayerNorm
+from ..ops import (edge_softmax_attention_reference,
+                   edge_softmax_attention_tiled, spmm_tile_dense, spmm_tiled)
 
 
 def neighbor_sum(x, gb):
@@ -70,3 +75,92 @@ class GINConv(nn.Module):
         out = x + neighbor_sum(x, gb)
         # BN inside the MLP must ignore padding rows
         return self.mlp(out, mask=node_mask_like(gb, out))
+
+
+class GraphTransformerAttention(nn.Module):
+    """Sparse edge-score attention: Q/K/V (and E) projections, then the
+    clamped-exp edge softmax and value aggregation.
+
+    Under the `pallas_tile` or `tile_dense` backend on a tiled batch it goes
+    through `edge_softmax_attention_tiled` (kernels K2/K3 on CUDA tensors,
+    their plain version on CPU ones), as the JAX layer engages its fused
+    kernel there on any backend but the CPU; otherwise through the
+    reference form, where every edge counts.
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int,
+                 use_edge: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.out_dim = out_dim
+        self.use_edge = use_edge
+        width = num_heads * out_dim
+        # no biases, as on every JAX path that builds this layer
+        self.Q = Linear(in_dim, width, use_bias=False)
+        self.K = Linear(in_dim, width, use_bias=False)
+        self.V = Linear(in_dim, width, use_bias=False)
+        if use_edge:
+            self.E = Linear(in_dim, width, use_bias=False)
+
+    def forward(self, gb, h, e):
+        H, D = self.num_heads, self.out_dim
+        q, k, v = (m(h).reshape(-1, H, D) for m in (self.Q, self.K, self.V))
+        if self.use_edge:
+            e1 = self.E(e).reshape(-1, H, D)
+        else:
+            e1 = torch.ones((gb.num_edges, H, D), dtype=q.dtype,
+                            device=q.device)
+        if (seg.get_agg_backend() in ("pallas_tile", "tile_dense")
+                and "tile_starts" in gb.extras):
+            starts = gb.extras["tile_starts"]
+            bn = gb.num_nodes // starts.shape[0]
+            return edge_softmax_attention_tiled(
+                q, k, v, e1, gb.senders, gb.receivers, gb.edge_mask, starts,
+                gb.extras["tile_ends"], bn, batch_csr(gb))
+        return edge_softmax_attention_reference(
+            q, k, v, e1, gb.senders, gb.receivers, gb.edge_mask,
+            gb.num_nodes)
+
+
+class GraphTransformerLayer(nn.Module):
+    """Attention, O projection and FFN with LayerNorm/BatchNorm and
+    residuals.  Submodule names are the flax ones: `attention.{Q,K,V,E}`,
+    `O_h`, `ln1`, `bn1`, `ffn1`, `ffn2`, `ln2`, `bn2`."""
+
+    def __init__(self, features: int, num_heads: int, layer_norm: bool = False,
+                 batch_norm: bool = True, residual: bool = True,
+                 use_edge: bool = False):
+        super().__init__()
+        self.features = features
+        self.layer_norm = layer_norm
+        self.batch_norm = batch_norm
+        self.residual = residual
+        self.attention = GraphTransformerAttention(
+            features, features // num_heads, num_heads, use_edge=use_edge)
+        self.O_h = Linear(features, features)
+        self.ffn1 = Linear(features, 2 * features)
+        self.ffn2 = Linear(2 * features, features)
+        for i in (1, 2):
+            if layer_norm:
+                self.add_module(f"ln{i}", MaskedLayerNorm(features))
+            if batch_norm:
+                self.add_module(f"bn{i}", MaskedBatchNorm(features))
+
+    def _norms(self, gb, h, i: int):
+        if self.layer_norm:
+            h = getattr(self, f"ln{i}")(h, mask=gb.node_mask)
+        if self.batch_norm:
+            h = getattr(self, f"bn{i}")(h, mask=gb.node_mask)
+        return h
+
+    def forward(self, gb, h, e):
+        h_in1 = h
+        h = self.O_h(self.attention(gb, h, e).reshape(-1, self.features))
+        if self.residual:
+            h = h_in1 + h
+        h = self._norms(gb, h, 1)
+        h_in2 = h
+        h = self.ffn2(torch.relu(self.ffn1(h)))
+        if self.residual:
+            h = h_in2 + h
+        return self._norms(gb, h, 2)

@@ -1,3 +1,3 @@
 from .init import Embedding, Linear, init_parameters
 from .mlp import MLP, MLPReadout
-from .norm import MaskedBatchNorm
+from .norm import MaskedBatchNorm, MaskedLayerNorm

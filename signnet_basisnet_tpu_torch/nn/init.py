@@ -1,9 +1,9 @@
 """Linear and Embedding with the reference's PyTorch-default init.
 
-Port of signnet_basisnet_tpu/nn/init.py.  `Linear` draws weight and bias from
-uniform(+-1/sqrt(fan_in)), `Embedding` from N(0, 1), each from an explicit
-`torch.Generator` (`init_parameters`).  Weights are [out, in] (the flax kernel
-is [in, out]; bridge.py transposes).
+Port of signnet_basisnet_tpu/nn/init.py.  `Linear` draws weight and bias
+(none with `use_bias=False`) from uniform(+-1/sqrt(fan_in)), `Embedding`
+from N(0, 1), each from an explicit `torch.Generator` (`init_parameters`).
+Weights are [out, in] (the flax kernel is [in, out]; bridge.py transposes).
 
 `Linear` follows JAX's type promotion: an f32 input against bf16 weights
 computes in f32 with the bf16-rounded weights, as the JAX package's
@@ -20,21 +20,25 @@ from torch import nn
 
 
 class Linear(nn.Module):
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True):
         super().__init__()
         self.in_features = in_features
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
+                     else None)
 
     def reset_parameters(self, generator: torch.Generator):
         bound = 1.0 / math.sqrt(max(self.in_features, 1))
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
-            self.bias.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Embedding(nn.Module):

@@ -1,10 +1,11 @@
-"""Masked batch norm with the reference's (PyTorch) semantics.
+"""Masked batch and layer norm with the reference's (PyTorch) semantics.
 
-Port of signnet_basisnet_tpu/nn/norm.py:MaskedBatchNorm.  Statistics come from
-the rows where `mask` is 1 only; normalisation uses the biased variance and
-the running variance is updated with the unbiased one; momentum 0.1, eps
-1e-5; masked rows are zero on output.  Running statistics stay float32
-whatever the input type (the JAX package's bf16 mode keeps batch_stats f32).
+Port of signnet_basisnet_tpu/nn/norm.py (`MaskedBatchNorm`,
+`MaskedLayerNorm`).  Batch norm: statistics come from the rows where
+`mask` is 1 only; normalisation uses the biased variance and the running
+variance is updated with the unbiased one; momentum 0.1, eps 1e-5; masked
+rows are zero on output.  Running statistics stay float32 whatever the input
+type (the JAX package's bf16 mode keeps batch_stats f32).
 """
 from __future__ import annotations
 
@@ -52,3 +53,23 @@ class MaskedBatchNorm(nn.Module):
         if m is not None:
             y2 = y2 * m
         return y2.reshape(x.shape[:-1] + (d,))
+
+
+class MaskedLayerNorm(nn.Module):
+    """Layer norm over the last axis (biased variance, eps 1e-6), output
+    times the node mask: port of signnet_basisnet_tpu/nn/norm.py:
+    MaskedLayerNorm."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+        y = (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+        if mask is not None:
+            y = y * mask[..., None].to(y.dtype)
+        return y

@@ -1,0 +1,82 @@
+"""Compiles and loads every CUDA kernel of the port: nvcc + ctypes.
+
+`load(name, argtypes)` compiles ``csrc/<name>.cu`` with `NVCC_FLAGS` into a
+shared library under ``_build/`` (gitignored), once per hash of source and
+flags, loads it with ctypes, sets each entry's prototype from `argtypes`
+({entry name: [ctypes types]}, every entry returning a C int, the
+`cudaGetLastError()` after its launch) and returns the `ctypes.CDLL`.  The
+library is built at first use, never when a module is imported.  The build
+writes to a temporary file and renames it into place, so a build that dies
+leaves nothing behind that a later one would load.  There is no fallback: a
+failed build raises.  `torch.utils.cpp_extension` is not used: its builds
+include PyTorch's headers and take minutes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, List
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# per kernel source, what its build did: seconds of nvcc (0.0 when the
+# library was already built), nvcc's -Xptxas -v report, the library's path
+build_info: Dict[str, dict] = {}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "nvcc")
+        if os.path.exists(cand):
+            nvcc = cand
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "signnet_basisnet_tpu_torch need the CUDA toolkit")
+    return nvcc
+
+
+def load(name: str, argtypes: Dict[str, List]) -> ctypes.CDLL:
+    """Build csrc/<name>.cu (once per source and flags) and load it."""
+    if name in _libs:
+        return _libs[name]
+    src_path = source_path(name)
+    with open(src_path, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    info = {"seconds": 0.0, "ptxas": "", "path": path}
+    t0 = time.time()
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                               src_path], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src_path}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)
+        info["ptxas"] = (proc.stdout + proc.stderr).strip()
+    info["seconds"] = time.time() - t0
+    lib = ctypes.CDLL(path)
+    for entry, types in argtypes.items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = types
+    build_info[name] = info
+    _libs[name] = lib
+    return lib

@@ -11,9 +11,10 @@ weight 0 (a batch's padding edges) are skipped, so a non-finite x row
 reached only through them does not leak into the output.
 
 - On CUDA tensors `spmm_tiled` launches the hand-written kernel
-  `csrc/spmm_tiled.cu` (sm_90a, built with nvcc at first use into `_build/`,
-  bound with ctypes) for the forward and, with `transpose=1`, for dx = A^T g
-  in the backward.  There is no fallback: a failed build or launch raises.
+  `csrc/spmm_tiled.cu` (sm_90a, built with nvcc at first use by
+  `_nvcc.load`, bound with ctypes) for the forward and, with
+  `transpose=1`, for dx = A^T g in the backward.  There is no fallback: a
+  failed build or launch raises.
   The kernel's design and its bound are noted in its source: memory-bound,
   about 12 us at N=3584, F=1520 (f32) on an H100 at 3.35 TB/s.
 - On CPU tensors it runs `spmm_tiled_plain`, the same function in plain
@@ -28,72 +29,20 @@ touches it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import Tuple
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                     "spmm_tiled.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import _nvcc
 
 # spmm_tiled_launch(x, out, senders, receivers, w, starts, ends, ptr, order,
 #                   num_nodes, num_feat, bn, is_bf16, transpose, stream)
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
-_lib = None
-# what the last build did: seconds of nvcc (0.0 when the library was already
-# built), nvcc's -Xptxas -v report, and the library's path
-build_info = {"seconds": None, "ptxas": "", "path": None}
-
-
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-        if os.path.exists(cand):
-            nvcc = cand
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels of "
-                           "signnet_basisnet_tpu_torch need the CUDA toolkit")
-    return nvcc
-
 
 def build() -> ctypes.CDLL:
     """Compile csrc/spmm_tiled.cu (once per source content) and load it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with open(_CSRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    path = os.path.join(_BUILD_DIR, f"libspmm_tiled_{tag}.so")
-    t0 = time.time()
-    if not os.path.exists(path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_CSRC}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, path)
-        build_info["ptxas"] = (proc.stdout + proc.stderr).strip()
-    build_info["seconds"] = time.time() - t0
-    build_info["path"] = path
-    lib = ctypes.CDLL(path)
-    lib.spmm_tiled_launch.restype = ctypes.c_int
-    lib.spmm_tiled_launch.argtypes = LAUNCH_ARGTYPES
-    _lib = lib
-    return lib
+    return _nvcc.load("spmm_tiled", {"spmm_tiled_launch": LAUNCH_ARGTYPES})
 
 
 def _tile_mask(senders, receivers, starts, ends, bn: int):

@@ -7,11 +7,14 @@ Port of the single-device path of signnet_basisnet_tpu/train_zinc.py: PE
 preprocessing -> model -> Adam + plateau LR -> epoch loop with val/test eval.
 The JAX package's configs are read as they are.  The run is on `cuda` unless
 `--device cpu` is given.  The aggregation backend is the config's
-(`data.agg_backend`): with `pallas_tile` the tile-local SpMM kernel runs on
-the card, and its plain version only where the tensors lie on the CPU.
+(`data.agg_backend`): with `pallas_tile` the GIN layers run the tile-local
+SpMM kernel on the card; with `pallas_tile` or `tile_dense` the Transformer
+layers run the fused attention kernels there.  Their plain versions run only
+where the tensors lie on the CPU.
 
 Not ported yet, and refused: train.mp > 1, checkpoint_dir/resume, LSPE and
-the Laplacian-eigvec loss, the non-lap_pe PE modes (ROADMAP.md queue 1).
+the Laplacian-eigvec loss, the non-lap_pe PE modes, the full-graph
+transformer (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -95,6 +98,10 @@ def run(cfg, device: str = "cuda", log=print):
         + (f", tiles of {tile}" if tile else ""))
 
     m = cfg.model
+    extra = {}
+    if m.model == "Transformer":
+        extra = dict(num_heads=m.num_heads, full_graph=m.full_graph,
+                     layer_norm=m.layer_norm)
     model = gnn_model(
         m.model, hidden_dim=m.hidden_dim, out_dim=m.out_dim,
         n_layers=m.n_layers, readout=m.readout,
@@ -104,7 +111,7 @@ def run(cfg, device: str = "cuda", log=print):
         pos_enc_dim=m.pos_enc_dim, sign_inv_net=m.sign_inv_net,
         sign_inv_layers=m.sign_inv_layers, phi_out_dim=m.phi_out_dim,
         pe_aggregate=m.pe_aggregate, max_nodes=m.max_nodes, remat=m.remat,
-        seed=cfg.train.seed).to(device)
+        seed=cfg.train.seed, **extra).to(device)
     log(f"model: {m.model} params={count_params(model)} device={device}")
 
     cdtype = (getattr(torch, cfg.train.compute_dtype)

@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain version.
+"""K1, K2 and K3 on the card: the CUDA kernels against their plain
+versions, and the train steps that launch them.
 
 Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 without one, so on a machine with no NVIDIA card they skip with a reason.
@@ -9,6 +10,14 @@ Run them on the card with
 Tolerances: f32, 1e-5 (each row sums its edges in a fixed order; only the
 order differs from the plain index_add_); bf16, one bf16 rounding of the
 output (2**-8 relative) beside the plain version that rounds once too.
+K3 is held at its launch against `edge_attention_bwd_plain` from the same
+ghat and c, and the whole autograd path (K2, glue, K3) in f32 against
+autograd through the plain version: 1e-4 relative + 1e-5 of the tensor's
+largest magnitude (at least 1e-5), since the backward subtracts
+c = sum_d out * ghat from sums of that magnitude and loses a digit to that
+cancellation.  (In bf16 the autograd path forms c from the bf16-rounded
+output, as the JAX glue does, where autograd through the plain version
+uses the unrounded one, so the two are not held to each other there.)
 """
 import importlib
 
@@ -26,6 +35,8 @@ from signnet_basisnet_tpu_torch.models import gnn_model
 from signnet_basisnet_tpu_torch.models.conv import batch_csr
 
 spmm_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops.spmm_tiled")
+attn_mod = importlib.import_module(
+    "signnet_basisnet_tpu_torch.ops.edge_attention")
 
 pytestmark = pytest.mark.gpu
 
@@ -111,6 +122,115 @@ def test_train_step_on_card_counts_47_launches(cuda):
         before = ops.spmm_tiled.launches
         ev(gb)
         assert ops.spmm_tiled.launches - before == 24
+    finally:
+        seg.set_agg_backend("xla")
+    assert torch.isfinite(loss)
+
+
+def _attn_inputs(gb, H, D, dtype, seed, q_scale=2.0):
+    g = torch.Generator(device=gb.senders.device).manual_seed(seed)
+    n, e = gb.num_nodes, gb.num_edges
+    mk = lambda *shape: torch.randn(*shape, device=gb.senders.device,
+                                    generator=g)
+    qkve = [mk(n, H, D) * q_scale, mk(n, H, D), mk(n, H, D), mk(e, H, D)]
+    return [t.to(dtype).requires_grad_(True) for t in qkve], mk(n, H, D)
+
+
+def _grad_tol(ref):
+    return dict(rtol=1e-4,
+                atol=1e-5 * max(1.0, float(ref.detach().abs().max())))
+
+
+def _attn_run(fn, gb, qkve, c, bn):
+    out = fn(*qkve, *_args(gb), bn)
+    (out.float() * c).sum().backward()
+    grads = [t.grad.float() for t in qkve]
+    for t in qkve:
+        t.grad = None
+    return [out.float()] + grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D", [(8, 8), (8, 10), (8, 7)])
+def test_attention_kernels_match_plain(cuda, dtype, H, D):
+    """K2 (values) and K3 (dQ, dK, dV, dE1 at its launch) against their
+    plain versions at a full-width tile; in f32 also the autograd path."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    qkve, g = _attn_inputs(gb, H, D, dtype, seed=H * D)
+    Q, K, V, E1 = (t.detach() for t in qkve)
+    out, den = attn_mod._launch_fwd(Q, K, V, E1, gb.senders, gb.edge_mask,
+                                    *_args(gb)[3:], gb.extras["dst_ptr"], bn)
+    ref = ops.edge_softmax_attention_plain(Q, K, V, E1, *_args(gb), bn)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                               atol=1e-5 if dtype == torch.float32 else 1e-3)
+    ghat = g / (den[:, :, None] + 1e-6)
+    c = (out.float() * ghat).sum(-1)
+    got = attn_mod._launch_bwd(Q, K, V, E1, ghat, c, *_args(gb),
+                               batch_csr(gb), bn)
+    want = attn_mod.edge_attention_bwd_plain(Q, K, V, E1, ghat, c,
+                                             *_args(gb), bn)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dQ", "dK", "dV", "dE1"), got, want):
+        torch.testing.assert_close(a, b, msg=name, **_grad_tol(b))
+    if dtype == torch.float32:
+        tiled = lambda *a: ops.edge_softmax_attention_tiled(
+            *a, csr=batch_csr(gb))
+        got = _attn_run(tiled, gb, qkve, g, bn)
+        want = _attn_run(ops.edge_softmax_attention_plain, gb, qkve, g, bn)
+        for name, a, b in zip(("out", "dQ", "dK", "dV", "dE1"), got, want):
+            torch.testing.assert_close(a, b, msg=name, **_grad_tol(b))
+
+
+def test_attention_counters_and_nonlocal_edges(cuda):
+    """One K2 launch per forward and one K3 launch per backward; an edge
+    whose source lies in another tile is dropped by the kernels as by the
+    plain version."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    s_far = gb.senders.clone()
+    real = torch.nonzero(gb.edge_mask > 0)[:, 0]
+    pick = real[::17]
+    s_far[pick] = (s_far[pick] + bn) % gb.num_nodes
+    args = (s_far,) + _args(gb)[1:]
+    csr = edge_csr(s_far, gb.receivers, gb.num_nodes)
+    qkve, c = _attn_inputs(gb, 8, 8, torch.float32, seed=1)
+    f = ops.edge_softmax_attention_tiled
+    before = (f.launches_fwd, f.launches_bwd)
+    out = f(*qkve, *args, bn, csr)
+    (out * c).sum().backward()
+    assert (f.launches_fwd, f.launches_bwd) == (before[0] + 1, before[1] + 1)
+    got = [out] + [t.grad for t in qkve]
+    for t in qkve:
+        t.grad = None
+    ref = ops.edge_softmax_attention_plain(*qkve, *args, bn)
+    (ref * c).sum().backward()
+    for name, a, b in zip(("out", "dQ", "dK", "dV", "dE1"), got,
+                          [ref] + [t.grad for t in qkve]):
+        torch.testing.assert_close(a, b, msg=name, **_grad_tol(b))
+
+
+def test_transformer_train_step_on_card_counts_attention_launches(cuda):
+    """TransformerNet under tile_dense: one K2 per layer per forward, one K3
+    per layer per backward, no K1."""
+    gb = _batch(n_graphs=40).to(cuda)
+    model = gnn_model("Transformer", hidden_dim=32, out_dim=32, n_layers=3,
+                      num_heads=4, layer_norm=True, pos_enc_dim=8,
+                      lap_method="sign_inv", sign_inv_layers=2,
+                      phi_out_dim=4, pe_aggregate="concat").to(cuda)
+    step, ev = build_steps(model, make_zinc_predict(model, "sign_inv"),
+                           adam(model.parameters()))
+    f = ops.edge_softmax_attention_tiled
+    seg.set_agg_backend("tile_dense")
+    try:
+        k1 = ops.spmm_tiled.launches
+        fwd, bwd = f.launches_fwd, f.launches_bwd
+        loss = step(gb, 1e-3)["loss"]
+        assert (f.launches_fwd - fwd, f.launches_bwd - bwd) == (3, 3)
+        ev(gb)
+        assert (f.launches_fwd - fwd, f.launches_bwd - bwd) == (6, 3)
+        assert ops.spmm_tiled.launches == k1
     finally:
         seg.set_agg_backend("xla")
     assert torch.isfinite(loss)

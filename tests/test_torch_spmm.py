@@ -21,6 +21,7 @@ from signnet_basisnet_tpu_torch import ops as tops
 from signnet_basisnet_tpu_torch.graph import edge_csr
 
 spmm_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops.spmm_tiled")
+nvcc_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops._nvcc")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -181,12 +182,12 @@ def test_spmm_tiled_no_path_for_other_devices():
 def test_kernel_source_and_build_flags():
     """The kernel is CUDA C++ for sm_90a with a plain C entry (it is built
     and run only on the card; tests/test_torch_gpu.py holds it there)."""
-    with open(spmm_mod._CSRC) as f:
+    with open(nvcc_mod.source_path("spmm_tiled")) as f:
         src = f.read()
     assert 'extern "C" int spmm_tiled_launch(' in src
     assert "torch/extension.h" not in src
-    assert "arch=compute_90a,code=sm_90a" in spmm_mod.NVCC_FLAGS
-    assert spmm_mod._BUILD_DIR.endswith("_build")
+    assert "arch=compute_90a,code=sm_90a" in nvcc_mod.NVCC_FLAGS
+    assert nvcc_mod.BUILD_DIR.endswith("_build")
 
 
 def test_ctypes_argtypes_match_the_c_signature():
@@ -195,7 +196,7 @@ def test_ctypes_argtypes_match_the_c_signature():
     an int as c_int."""
     import ctypes
     import re
-    with open(spmm_mod._CSRC) as f:
+    with open(nvcc_mod.source_path("spmm_tiled")) as f:
         src = f.read()
     params = re.search(r'extern "C" int spmm_tiled_launch\(([^)]*)\)',
                        src).group(1)
