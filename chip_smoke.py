@@ -13,12 +13,15 @@ each so a stall shows where it happened:
 1. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
    and bf16, forward and transposed, autograd, a batch with non-tile-local
-   edges) and K2/K3 (the fused edge-softmax attention forward and backward;
-   f32 and bf16 at D = 8, 10 and 7, a batch with non-tile-local edges);
-   CUDA-event times of each kernel, of its plain version and, where one
-   exists, of one library call (a yardstick, never used by the port)
-   beside the bound the card's memory and arithmetic rates put on the same
-   work;
+   edges), K2/K3 (the fused edge-softmax attention forward and backward;
+   f32 and bf16 at D = 8, 10 and 7, a batch with non-tile-local edges) and
+   K4 (the fused GatedGCN gate; f32 and bf16 at F = 68, 77 and 70, agg and
+   e_new at every slot, the padding slots included, the autograd path, a
+   batch with non-tile-local edges); CUDA-event times of each kernel (K2-K4
+   also without the batch's padding edges), of its plain version and,
+   where one exists, of one library call (a yardstick, never used by the
+   port) beside the bound the card's memory and arithmetic rates put on the
+   same work;
 2. the GIN path: one full-width train step on the card against the same
    step on the CPU (the kernels' plain versions) from the same weights; the
    warm step's time on one fixed batch, f32 and bf16 in turns, with the
@@ -35,7 +38,17 @@ each so a stall shows where it happened:
    k=16 with an 8-layer GIN phi): card vs CPU step, warm steps with the
    K2/K3 share of the device time, then train_zinc.run in f32 and bf16
    with the launch counts read against 10 K2 and 10 K3 per train step, 10
-   K2 per eval step and no K1.
+   K2 per eval step and no K1.  The card-vs-CPU check also runs the card's
+   plain path (no kernels) in f32 and f64: the f64 step must match the
+   CPU's f64 step;
+5. the GatedGCN path, the same three checks on
+   configs/gatedgcn_zinc_signinv_gin.json with data.tile 256 and
+   data.agg_backend pallas_tile (GatedGCNNet 16x68, residual, BatchNorm on
+   h and e, SignNet k=8 with an 8-layer GIN phi): card vs CPU step (with
+   the plain path's f32 and f64 runs), warm steps with the K4/K1 share of
+   the device time, then train_zinc.run in f32 and bf16 with the launch
+   counts read against 16 K4 and 15 K1 per train step, 16 K4 and 8 K1 per
+   eval step and no K2/K3.
 
 The last two lines are the kernels' JSON record and the result line.  Any
 failure raises (exit code 1); without a card it exits 2 and prints no
@@ -54,6 +67,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join("configs", "gin_zinc_signinv_gin.json")
 TRANSFORMER_CONFIG = os.path.join("configs",
                                   "transformer_zinc_signinv_gin.json")
+GATEDGCN_CONFIG = os.path.join("configs", "gatedgcn_zinc_signinv_gin.json")
 OUT_DIR = os.path.join("out", "chip_smoke")
 
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 bytes/s and
@@ -235,8 +249,27 @@ def _attention_plain_on_card():
         conv.edge_softmax_attention_tiled = tiled
 
 
+@contextlib.contextmanager
+def _gate_plain_on_card():
+    """The GatedGCN layers' gate and the phi's aggregation through their
+    plain versions (autograd through them), not K4/K1, while the block
+    runs: the card's own plain path, in any float type."""
+    from signnet_basisnet_tpu_torch.models import conv
+    from signnet_basisnet_tpu_torch.ops import (gatedgcn_gate_plain,
+                                                spmm_tiled_plain)
+    saved = conv.gatedgcn_gate_tiled, conv.spmm_tiled
+    conv.gatedgcn_gate_tiled = (
+        lambda *args: gatedgcn_gate_plain(*args[:9], args[10]))
+    conv.spmm_tiled = lambda *args, csr: spmm_tiled_plain(*args[:6],
+                                                           args[7])
+    try:
+        yield
+    finally:
+        conv.gatedgcn_gate_tiled, conv.spmm_tiled = saved
+
+
 def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
-                            plain_on_card=None):
+                            plain_on_card=None, floor_cpu_error=False):
     """One train step from the same weights: on the card in f32, on the CPU
     (the kernels' plain versions) in f32 and in f64.  The f64 step stands
     for the exact one; the card's f32 error against it must stay within
@@ -244,21 +277,26 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
     the BatchNorm'd layers on both).
 
     With `plain_on_card` (a context that swaps the kernels for their plain
-    versions) the step also runs on the card without the kernels, and the
-    CPU's error on a tensor is taken as no less than the CPU's median
-    relative error over all tensors times the tensor's largest gradient: a
-    ReLU or clamp that sits within float noise of its kink sends the
-    gradient of the layers below it one way or the other, so one run lands
-    near the f64 step by luck and another does not, with or without the
-    kernels (the card's plain run shows which way it fell).  Returns the
-    card's (step, batch)."""
+    versions) the step also runs on the card without the kernels, in f32
+    and in f64.  The card's f64 step must match the CPU's to 1e-9 of each
+    tensor's largest gradient (or of 1e-4 of the model's largest, if that
+    is more): both are exact to f64 rounding, so the card's f32 error is
+    f32 rounding and not a fault of the card's path.
+    With `floor_cpu_error` too, the CPU's error on a tensor is taken as no
+    less than the CPU's median relative error over all tensors times the
+    tensor's largest gradient: a ReLU or clamp that sits within float noise
+    of its kink sends the gradient of the layers below it one way or the
+    other, so one run lands near the f64 step by luck and another does not,
+    with or without the kernels (the card's plain run shows which way it
+    fell).  Returns the card's (step, batch) and the errors read."""
     import numpy as np
     import torch
     from signnet_basisnet_tpu_torch.graph import from_arrays
     from signnet_basisnet_tpu_torch.models import gnn_model
     runs = [("card", "cuda", torch.float32, contextlib.nullcontext)]
     if plain_on_card is not None:
-        runs.append(("card_plain", "cuda", torch.float32, plain_on_card))
+        runs += [("card_plain", "cuda", torch.float32, plain_on_card),
+                 ("card_plain_f64", "cuda", torch.float64, plain_on_card)]
     runs += [("cpu", "cpu", torch.float32, contextlib.nullcontext),
              ("cpu_f64", "cpu", torch.float64, contextlib.nullcontext)]
     losses, grads = {}, {}
@@ -279,10 +317,26 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
             losses["cpu"] - losses["cpu_f64"]) + 1e-6:
         raise AssertionError("card and CPU losses disagree")
     errs = {n: {k: float((grads[k][n] - g).abs().max()) for k in grads
-                if k != "cpu_f64"} for n, g in grads["cpu_f64"].items()}
+                if not k.endswith("f64")} for n, g in grads["cpu_f64"].items()}
     scale = {n: float(g.abs().max()) for n, g in grads["cpu_f64"].items()}
-    typical = 0.0
+    f64_gap = None
     if plain_on_card is not None:
+        # a tensor whose gradient is zero in exact arithmetic (a bias
+        # straight before a BatchNorm) is measured against 1e-4 of the
+        # model's largest gradient
+        top = max(scale.values())
+        f64_gap = max((float((grads["card_plain_f64"][n] - g).abs().max())
+                       / (scale[n] + 1e-4 * top), n)
+                      for n, g in grads["cpu_f64"].items())
+        print(f"  card plain f64 vs CPU f64: loss "
+              f"{abs(losses['card_plain_f64'] - losses['cpu_f64']):.3e} "
+              f"apart; grads at most {f64_gap[0]:.3e} of the tensor's "
+              f"largest gradient apart, at {f64_gap[1]}", flush=True)
+        if not f64_gap[0] < 1e-9:
+            raise AssertionError("the card's f64 step (plain path) departs "
+                                 "from the CPU's f64 step")
+    typical = 0.0
+    if floor_cpu_error:
         typical = float(np.median([e["cpu"] / s for n, e in errs.items()
                                    if (s := scale[n]) > 0]))
         print(f"  CPU f32 error, median over tensors relative to the "
@@ -307,16 +361,28 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
             + f"; card error / bar {ratio[n]:.3f}", flush=True)
     print(f"  grads: worst card error / (10x the CPU's error on the tensor) "
           f"{worst_cpu[0]:.3f} at {worst_cpu[1]}", flush=True)
+    if f64_gap is not None:
+        n = worst_cpu[1]
+        f64_gap_at_worst = float((grads["card_plain_f64"][n]
+                                  - grads["cpu_f64"][n]).abs().max())
+        rel = f64_gap_at_worst / (scale[n] + 1e-4 * top)
+        print(f"  ... there the card's plain f64 step is "
+              f"{f64_gap_at_worst:.3e} from the CPU's f64 step ({rel:.3e} "
+              "of the tensor's largest gradient)", flush=True)
+        f64_gap = f64_gap + (n, rel)
     if plain_on_card is not None:
         print(f"  grads: the same for the card's plain run (no kernels) "
               f"{worst_plain[0]:.3f} at {worst_plain[1]}", flush=True)
+    if floor_cpu_error:
         print(f"  grads: worst card error / (10x the larger of the CPU's "
               f"error and its median relative error) {worst[0]:.3f} at "
               f"{worst[1]}", flush=True)
     if worst[0] > 1:
         raise AssertionError(f"grad {worst[1]}: the card's f32 error is "
                              "beyond 10x the CPU's")
-    return card_step
+    return card_step, dict(
+        losses=losses, worst_vs_pr4_bar=worst_cpu, worst=worst,
+        worst_plain_vs_pr4_bar=worst_plain, f64_gap=f64_gap)
 
 
 def main():
@@ -338,8 +404,10 @@ def main():
         "signnet_basisnet_tpu_torch.ops.edge_attention")
     spmm_mod = importlib.import_module(
         "signnet_basisnet_tpu_torch.ops.spmm_tiled")
+    gate_mod = importlib.import_module(
+        "signnet_basisnet_tpu_torch.ops.gatedgcn_gate")
     from signnet_basisnet_tpu_torch.ops.spmm_tiled import (
-        _launch, _tile_mask, spmm_tiled, spmm_tiled_plain)
+        _launch, _tile_mask, edge_in_range, spmm_tiled, spmm_tiled_plain)
     from signnet_basisnet_tpu_torch.train_zinc import run
     from signnet_basisnet_tpu_torch.training import (adam, build_steps,
                                                      load_config,
@@ -360,7 +428,7 @@ def main():
         record["card"] = smi
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
-        _build_all([spmm_mod, attn])
+        _build_all([spmm_mod, attn, gate_mod])
         for name, info in _nvcc.build_info.items():
             print(f"{name}: nvcc {info['seconds']:.1f} s -> "
                   f"{os.path.relpath(info['path'], ROOT)}", flush=True)
@@ -697,9 +765,146 @@ def main():
                      bound_by=attn_bounds["K3"]["bound_by"], library_ms=None)
         del flush
 
+    with Phase("1c GatedGCN gate kernel (K4) vs plain"):
+        gate = gate_mod.gatedgcn_gate_tiled
+        gate_plain = gate_mod.gatedgcn_gate_plain
+        # agg and e_new at every row and edge slot, the padding slots
+        # included: f32, 1e-5 (f32 sums in other orders); bf16, one bf16
+        # ulp (2**-7 relative) + 1e-3.  The autograd path (K4, then the plain
+        # backward, the JAX `_gate_bwd`) against autograd through the plain
+        # version, f32, to K3's tolerance (both divide by the gate sums and
+        # subtract c = agg * ghat)
+        errs["K4"] = 0.0
+
+        def gate_inputs(F, dtype):
+            mk = lambda rows: torch.randn(rows, F, device=dev, generator=gen)
+            return [mk(nb).to(dtype), mk(nb).to(dtype), mk(nb).to(dtype),
+                    mk(eb).to(dtype)]
+
+        def gate_compare(tag, edge_args, edge_csr_, F, dtype):
+            feats = gate_inputs(F, dtype)
+            got = gate_mod._launch(*feats, *edge_args, edge_csr_[0], bn)
+            want = gate_plain(*feats, *edge_args, bn)
+            for nm, a, b in zip(("agg", "e_new"), got, want):
+                if a.dtype != dtype:
+                    raise AssertionError(f"K4 {tag} {nm}: type {a.dtype}")
+                attn_check("K4", f"K4 {tag} {nm}", a, b,
+                           f32_tol if dtype == torch.float32 else bf16_tol)
+            return feats, got
+
+        n_real = int((gb.edge_mask != 0).sum())
+        assert bool((gb.edge_mask[:n_real] != 0).all())
+        for F in (68, 77, 70):
+            for dtype in (torch.float32, torch.bfloat16):
+                feats, (agg, e_new) = gate_compare(
+                    f"F={F} {str(dtype)[6:]}", args, csr, F, dtype)
+                # the padding slots (weight 0, on the last node) hold their
+                # e_new, not zeros
+                pad_ref = (feats[1].float()[gb.senders[n_real:].long()]
+                           + feats[2].float()[gb.receivers[n_real:].long()]
+                           + feats[3].float()[n_real:])
+                attn_check("K4", f"K4 F={F} {str(dtype)[6:]} e_new at the "
+                           f"{eb - n_real} padding slots", e_new[n_real:],
+                           pad_ref.to(dtype), f32_tol
+                           if dtype == torch.float32 else bf16_tol)
+        feats = [t.requires_grad_(True)
+                 for t in gate_inputs(68, torch.float32)]
+        c1 = torch.randn(nb, 68, device=dev, generator=gen)
+        c2 = torch.randn(eb, 68, device=dev, generator=gen)
+
+        def gate_fwd_bwd(fn):
+            agg, e_new = fn(*feats)
+            return [agg, e_new] + list(torch.autograd.grad(
+                (agg * c1).sum() + (e_new * c2).sum(), feats))
+
+        got = gate_fwd_bwd(lambda *f: gate(*f, *args, nb, bn, csr))
+        want = gate_fwd_bwd(lambda *f: gate_plain(*f, *args, bn))
+        for nm, a, b in zip(("agg", "e_new", "dBh", "dDh", "dEh", "dCe"),
+                            got, want):
+            attn_check("K4", f"K4 autograd F=68 float32 {nm}", a, b,
+                       grad_tol)
+        # the batch with non-tile-local edges of phase 1: counted fully by
+        # K4 and the plain version, as by the reference
+        feats, got = gate_compare("non-local edges F=68 float32", far_args,
+                                  far_csr, 68, torch.float32)
+        ref = gate_mod.gatedgcn_gate_reference(*feats, *far_args[:3], nb)
+        for nm, a, b in zip(("agg", "e_new"), got, ref):
+            attn_check("K4", f"K4 non-local edges {nm} vs reference", a, b,
+                       f32_tol)
+
+        # times at the slice's shapes: F = 68, f32, with and without the
+        # batch's padding edges (weight 0, all on its last node)
+        F = 68
+        feats = [t.detach() for t in gate_inputs(F, torch.float32)]
+        flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+        k4_args = (*feats, *args, csr[0], bn)
+        k4_ms = _cuda_time_ms(lambda: gate_mod._launch(*k4_args),
+                              flush=flush)
+        cut = [a[:n_real].contiguous() for a in (gb.senders, gb.receivers,
+                                                 gb.edge_mask, feats[3])]
+        lims = [torch.clamp(a, max=n_real) for a in args[3:]]
+        csr_cut = edge_csr(cut[0], cut[1], nb)
+        k4_cut_ms = _cuda_time_ms(lambda: gate_mod._launch(
+            *feats[:3], cut[3], *cut[:3], *lims, csr_cut[0], bn),
+            flush=flush)
+        k4_plain_ms = _cuda_time_ms(lambda: gate_plain(*feats, *args, bn),
+                                    flush=flush)
+        # the backward every train step runs after K4, in plain torch
+        g_agg, g_e = (torch.randn(t.shape, device=dev, generator=gen)
+                      for t in (feats[0], feats[3]))
+        k4_bwd_ms = _cuda_time_ms(lambda: gate_mod.gatedgcn_gate_bwd_plain(
+            *feats, *args[:3], g_agg, g_e, nb), flush=flush)
+        # bound of this batch's work.  Bytes: Bh read at the rows the
+        # counted edges (in range, weight != 0) reach as sources, Dh at the
+        # sources of every in-range edge, Eh at their destinations, Ce read
+        # and e_new written at every in-range slot (e_new at every slot),
+        # agg written at every row, and the index arrays (senders,
+        # receivers, weights, dst_ptr, the tile ranges).  Operations (f32,
+        # outside the tensor cores): 2 adds per in-range slot and feature
+        # for e_new, ~8 per counted slot and feature for the gate (sigmoid
+        # as negate, exp, add, divide; the weight; the product with Bh; the
+        # two sums), 2 per row and feature for agg
+        in_rng = edge_in_range(gb.receivers, *args[3:], bn)
+        counted = in_rng & (gb.edge_mask != 0)
+        n_in, n_counted = int(in_rng.sum()), int(counted.sum())
+        rows = {k: int(torch.unique(v).numel()) for k, v in (
+            ("Bh", gb.senders[counted]), ("Dh", gb.senders[in_rng]),
+            ("Eh", gb.receivers[in_rng]))}
+        k4_bytes = ((sum(rows.values()) + n_in + eb + nb) * F * 4
+                    + (3 * eb + nb + 1 + 2 * n_tiles) * 4)
+        k4_ops = (2 * n_in + 8 * n_counted + 2 * nb) * F
+        t_b = k4_bytes / PEAK_BYTES_PER_S * 1e3
+        t_o = k4_ops / PEAK_F32_FLOP_PER_S * 1e3
+        k4_bound = dict(bound_ms=max(t_b, t_o),
+                        bound_by="bytes" if t_b >= t_o else "operations",
+                        bytes=k4_bytes, ops=k4_ops, rows=rows,
+                        in_range_slots=n_in, counted_edges=n_counted)
+        prof_us = _profiled_kernel_us(lambda: gate_mod._launch(*k4_args),
+                                      "gate_kernel")
+        print(f"K4 F=68 f32: kernel_ms {k4_ms:.4f} (without the "
+              f"{eb - n_real} padding edges {k4_cut_ms:.4f}), plain_ms "
+              f"{k4_plain_ms:.4f}, bound {k4_bound['bound_ms'] * 1e3:.2f} us "
+              f"by {k4_bound['bound_by']} ({k4_bytes / 1e6:.2f} MB, "
+              f"{k4_ops / 1e6:.2f} MFLOP; {n_in} in-range slots, "
+              f"{n_counted} counted edges, rows read {rows}); kernel / bound "
+              f"{k4_ms / k4_bound['bound_ms']:.2f}; profiler (warm L2) "
+              f"{prof_us} us per launch; its plain backward "
+              f"(gatedgcn_gate_bwd_plain) {k4_bwd_ms:.4f} ms", flush=True)
+        record.update(gate_no_padding_ms=k4_cut_ms, gate_bound=k4_bound,
+                      gate_profiler_us_warm=prof_us, gate_bwd_ms=k4_bwd_ms)
+        kern4 = dict(name="gatedgcn_gate_fwd", route="cuda",
+                     source="signnet_basisnet_tpu_torch/ops/csrc/"
+                            "gatedgcn_gate.cu",
+                     replaces="signnet_basisnet_tpu/ops/pallas_gatedgcn.py:143",
+                     launches=None, max_abs_err=errs["K4"], ms=k4_ms,
+                     plain_ms=k4_plain_ms, bound_ms=k4_bound["bound_ms"],
+                     bound_by=k4_bound["bound_by"], library_ms=None)
+        del flush, feats
+
     def reset_counts():
         spmm_tiled.launches = 0
         tiled.launches_fwd = tiled.launches_bwd = 0
+        gate.launches = 0
 
     # ---------------------------------------------------------------- 2
     def trainer_cfg(extra):
@@ -719,7 +924,7 @@ def main():
                    phi_out_dim=m.phi_out_dim, pe_aggregate=m.pe_aggregate,
                    seed=cfg.train.seed)
         seg.set_agg_backend("pallas_tile")
-        card_step = _check_step_card_vs_cpu(
+        card_step, record["gin_card_vs_cpu"] = _check_step_card_vs_cpu(
             "GIN", net, arrays, lambda model: build_steps(
                 model, make_zinc_predict(model, "sign_inv"),
                 adam(model.parameters()))[0])
@@ -760,8 +965,8 @@ def main():
                                                           flush=True))
         torch.cuda.synchronize()
         launches = spmm_tiled.launches
-        if tiled.launches_fwd or tiled.launches_bwd:
-            raise AssertionError("the GIN path launched K2/K3")
+        if tiled.launches_fwd or tiled.launches_bwd or gate.launches:
+            raise AssertionError("the GIN path launched K2/K3/K4")
         expect = per_train * res.train_steps + per_eval * res.eval_steps
         print(f"  spmm_tiled launches {launches}, expected {per_train} x "
               f"{res.train_steps} train steps + {per_eval} x "
@@ -798,8 +1003,8 @@ def main():
               f"{expect}", flush=True)
         if spmm_tiled.launches != expect:
             raise AssertionError("bf16 path: wrong K1 launch count")
-        if tiled.launches_fwd or tiled.launches_bwd:
-            raise AssertionError("the GIN path launched K2/K3")
+        if tiled.launches_fwd or tiled.launches_bwd or gate.launches:
+            raise AssertionError("the GIN path launched K2/K3/K4")
         h = res.history[-1]
         if not np.isfinite([h["train_loss"], h["val_mae"], res.test_mae]).all():
             raise AssertionError(f"bf16: non-finite metrics {res.history}")
@@ -832,11 +1037,12 @@ def main():
                     phi_out_dim=m.phi_out_dim, pe_aggregate=m.pe_aggregate,
                     seed=cfg.train.seed)
         seg.set_agg_backend(cfg.data.agg_backend)
-        t_step, t_batch = _check_step_card_vs_cpu(
+        (t_step, t_batch), info = _check_step_card_vs_cpu(
             "Transformer", tnet, arrays_t, lambda model: build_steps(
                 model, make_zinc_predict(model, m.lap_method),
                 adam(model.parameters()))[0],
-            plain_on_card=_attention_plain_on_card)
+            plain_on_card=_attention_plain_on_card, floor_cpu_error=True)
+        record["transformer_card_vs_cpu"] = info
 
     with Phase("4b Transformer warm step, f32 and bf16 interleaved"):
         bf16_model = gnn_model("Transformer", **tnet).to(dev)
@@ -872,17 +1078,18 @@ def main():
             torch.cuda.synchronize()
             # one K2 per layer per forward, one K3 per layer per backward
             want = (layers * (res.train_steps + res.eval_steps),
-                    layers * res.train_steps, 0)
+                    layers * res.train_steps, 0, 0)
             got = (tiled.launches_fwd, tiled.launches_bwd,
-                   spmm_tiled.launches)
+                   spmm_tiled.launches, gate.launches)
             print(f"  K2 launches {got[0]}, K3 launches {got[1]}, K1 "
-                  f"launches {got[2]}; expected {want} for "
-                  f"{res.train_steps} train and {res.eval_steps} eval "
-                  "steps", flush=True)
+                  f"launches {got[2]}, K4 launches {got[3]}; expected "
+                  f"{want} for {res.train_steps} train and "
+                  f"{res.eval_steps} eval steps", flush=True)
             if got != want:
                 raise AssertionError(f"the Transformer path did not launch "
                                      f"{layers} K2 and K3 per train step, "
-                                     f"{layers} K2 per eval step, no K1")
+                                     f"{layers} K2 per eval step, no K1 "
+                                     "and no K4")
             h = res.history[-1]
             if (res.epochs_run != 2 or not all(
                     np.isfinite([r["train_loss"], r["val_mae"]]).all()
@@ -898,7 +1105,101 @@ def main():
             if name == "f32":
                 kern2["launches"], kern3["launches"] = got[:2]
 
-    kernels = [kern, kern2, kern3]
+    # ---------------------------------------------------------------- 5
+    def gatedgcn_cfg(extra):
+        return load_config(GATEDGCN_CONFIG, [
+            "data.tile", "256", "data.agg_backend", "pallas_tile",
+            "data.synth_train", "512", "data.synth_eval", "128",
+            "train.print_epoch_interval", "1", "out_dir", OUT_DIR] + extra)
+
+    with Phase("5a GatedGCN full-width step, card vs CPU"):
+        # GatedGCNNet 16x68 through K4, its GINDeepSigns phi (8 layers over
+        # the [N, 16, 68] stack) through K1, on the phase-1 batch (k = 8)
+        cfg = gatedgcn_cfg([])
+        m = cfg.model
+        gnet = dict(hidden_dim=m.hidden_dim, out_dim=m.out_dim,
+                    n_layers=m.n_layers, residual=m.residual,
+                    batch_norm=m.batch_norm, readout=m.readout,
+                    pos_enc_dim=m.pos_enc_dim, lap_method=m.lap_method,
+                    sign_inv_layers=m.sign_inv_layers,
+                    phi_out_dim=m.phi_out_dim, pe_aggregate=m.pe_aggregate,
+                    seed=cfg.train.seed)
+        seg.set_agg_backend(cfg.data.agg_backend)
+        (g_step, g_batch), record["gatedgcn_card_vs_cpu"] = (
+            _check_step_card_vs_cpu(
+                "GatedGCN", gnet, arrays, lambda model: build_steps(
+                    model, make_zinc_predict(model, m.lap_method),
+                    adam(model.parameters()))[0],
+                plain_on_card=_gate_plain_on_card))
+
+    with Phase("5b GatedGCN warm step, f32 and bf16 interleaved"):
+        bf16_model = gnn_model("GatedGCN", **gnet).to(dev)
+        bf16_step, _ = build_steps(
+            bf16_model, make_zinc_predict(bf16_model, m.lap_method,
+                                          compute_dtype=torch.bfloat16),
+            adam(bf16_model.parameters()))
+        ms = _interleaved_ms({"f32": g_step, "bf16": bf16_step}, g_batch)
+        for name, v in ms.items():
+            print(f"  warm GatedGCN {name} step (host clock, {len(v)} "
+                  f"windows of 10 steps): median {float(np.median(v)):.2f} "
+                  f"ms, min {min(v):.2f}, max {max(v):.2f}; windows "
+                  f"{[round(t, 2) for t in v]}", flush=True)
+            record[f"gatedgcn_warm_{name}_step_ms"] = v
+        for name, step in (("f32", g_step), ("bf16", bf16_step)):
+            prof = _profile_steps(step, g_batch, ["gate_kernel",
+                                                  "spmm_tiled_kernel"])
+            print(f"  profiler, GatedGCN {name}: {prof}", flush=True)
+            record[f"gatedgcn_warm_{name}_step_profile"] = prof
+        del bf16_model, bf16_step, g_step, g_batch
+
+    # per train step one K4 per layer (forward only: the backward is plain
+    # torch) and the phi's K1, one per layer forward and one per layer but
+    # the first backward (its input, the eigenvector stack, needs no
+    # gradient); per eval step the forwards alone
+    k4_step = cfg.model.n_layers
+    k1_train = 2 * cfg.model.sign_inv_layers - 1
+    k1_eval = cfg.model.sign_inv_layers
+    for name, extra in (("f32", ["data.synth_train", "512"]),
+                        ("bf16", ["train.compute_dtype", "bfloat16",
+                                  "data.synth_train", "384"])):
+        with Phase(f"5c GatedGCN main path {name} (train_zinc, "
+                   "pallas_tile)"):
+            gcfg = gatedgcn_cfg(extra + ["train.epochs", "2", "name",
+                                         f"gatedgcn_{name}"])
+            reset_counts()
+            res = run(gcfg, device="cuda", log=lambda s: print("  " + s,
+                                                               flush=True))
+            torch.cuda.synchronize()
+            want = (k4_step * (res.train_steps + res.eval_steps),
+                    k1_train * res.train_steps + k1_eval * res.eval_steps,
+                    0, 0)
+            got = (gate.launches, spmm_tiled.launches, tiled.launches_fwd,
+                   tiled.launches_bwd)
+            print(f"  K4 launches {got[0]}, K1 launches {got[1]}, K2/K3 "
+                  f"launches {got[2:]}; expected {want} for "
+                  f"{res.train_steps} train and {res.eval_steps} eval "
+                  "steps", flush=True)
+            if got != want:
+                raise AssertionError(
+                    f"the GatedGCN path did not launch {k4_step} K4 per "
+                    f"train and eval step, {k1_train} K1 per train step, "
+                    f"{k1_eval} per eval step, no K2/K3")
+            h = res.history[-1]
+            if (res.epochs_run != 2 or not all(
+                    np.isfinite([r["train_loss"], r["val_mae"]]).all()
+                    for r in res.history) or not np.isfinite(res.test_mae)):
+                raise AssertionError(f"non-finite or missing metrics: "
+                                     f"{res.history}")
+            step_ms = h["train_time"] / h["train_steps"] * 1e3
+            print(f"  GatedGCN {name} step time (epoch 2, "
+                  f"{h['train_steps']} steps, host clock to the last loss "
+                  f"on the host): {step_ms:.2f} ms", flush=True)
+            record[f"gatedgcn_{name}_step_ms"] = step_ms
+            record[f"gatedgcn_{name}_history"] = res.history
+            if name == "f32":
+                kern4["launches"] = got[0]
+
+    kernels = [kern, kern2, kern3, kern4]
     record["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=float)

@@ -1,10 +1,12 @@
-"""Graph convolution on padded batched graphs: the GIN and Transformer paths.
+"""Graph convolution on padded batched graphs: the GIN, GatedGCN and
+Transformer paths.
 
 Port of signnet_basisnet_tpu/models/conv.py:26-58,104-125 (`neighbor_sum`,
-`node_mask_like`, `pool_any`, `GINConv`) and :682-811
-(`GraphTransformerAttention`, `GraphTransformerLayer`, sparse path).  The
-other layers of that file (GINE, GCN, GAT, GatedGCN, PNA) and the
-full-graph transformer are later slices of the port (ROADMAP.md queue 1).
+`node_mask_like`, `pool_any`, `GINConv`), :312-381 (`GatedGCNLayer`) and
+:682-811 (`GraphTransformerAttention`, `GraphTransformerLayer`, sparse
+path).  The other layers of that file (GINE, GCN, GAT, GatedGCN-LSPE, PNA)
+and the full-graph transformer are later slices of the port (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from ..graph import CSR_KEYS, segment as seg
 from ..nn.init import Linear
 from ..nn.norm import MaskedBatchNorm, MaskedLayerNorm
 from ..ops import (edge_softmax_attention_reference,
-                   edge_softmax_attention_tiled, spmm_tile_dense, spmm_tiled)
+                   edge_softmax_attention_tiled, gatedgcn_gate_reference,
+                   gatedgcn_gate_tiled, spmm_tile_dense, spmm_tiled)
 
 
 def neighbor_sum(x, gb):
@@ -75,6 +78,63 @@ class GINConv(nn.Module):
         out = x + neighbor_sum(x, gb)
         # BN inside the MLP must ignore padding rows
         return self.mlp(out, mask=node_mask_like(gb, out))
+
+
+class GatedGCNLayer(nn.Module):
+    """Residual gated graph conv (Bresson & Laurent):
+    e' = D h_src + E h_dst + C e; h' = A h + sum sigma(e') * B h_src /
+    (sum sigma(e') + 1e-6), then graph norm, BatchNorm over the real nodes
+    (bn_h) and the real edges (bn_e), ReLU and the residual on h and e.
+
+    Under the `pallas_tile` backend on a tiled batch the gate goes through
+    `gatedgcn_gate_tiled` (kernel K4 on CUDA tensors, its plain version on
+    CPU ones), as the JAX layer engages its fused kernel there; otherwise
+    through the reference form.  Submodule names are the flax ones: `A`-`E`,
+    `bn_h`, `bn_e`.
+    """
+
+    def __init__(self, in_dim: int, features: int, batch_norm: bool = True,
+                 residual: bool = False, graph_norm: bool = True):
+        super().__init__()
+        self.batch_norm = batch_norm
+        self.residual = residual
+        self.graph_norm = graph_norm
+        for name in "ABCDE":
+            self.add_module(name, Linear(in_dim, features))
+        if batch_norm:
+            self.bn_h = MaskedBatchNorm(features)
+            self.bn_e = MaskedBatchNorm(features)
+
+    def forward(self, gb, h, e, snorm_n=None):
+        if "mp_send_idx" in gb.extras:
+            raise NotImplementedError(
+                "the model-parallel halo exchange is not ported yet "
+                "(ROADMAP.md queue 1 item 20)")
+        h_in, e_in = h, e
+        Ah, Bh, Dh, Eh = (getattr(self, m)(h) for m in "ABDE")
+        Ce = self.C(e)
+        if (seg.get_agg_backend() == "pallas_tile"
+                and "tile_starts" in gb.extras):
+            bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+            agg, e_new = gatedgcn_gate_tiled(
+                Bh, Dh, Eh, Ce, gb.senders, gb.receivers, gb.edge_mask,
+                gb.extras["tile_starts"], gb.extras["tile_ends"],
+                gb.num_nodes, bn, batch_csr(gb))
+        else:
+            agg, e_new = gatedgcn_gate_reference(
+                Bh, Dh, Eh, Ce, gb.senders, gb.receivers, gb.edge_mask,
+                gb.num_nodes)
+        h_new = Ah + agg
+        if self.graph_norm and snorm_n is not None:
+            h_new = h_new * snorm_n
+        if self.batch_norm:
+            h_new = self.bn_h(h_new, mask=gb.node_mask)
+            e_new = self.bn_e(e_new, mask=gb.edge_mask)
+        h_new, e_new = torch.relu(h_new), torch.relu(e_new)
+        if self.residual and h_in.shape == h_new.shape:
+            h_new = h_in + h_new
+            e_new = e_in + e_new
+        return h_new, e_new
 
 
 class GraphTransformerAttention(nn.Module):

@@ -1,15 +1,16 @@
-"""ZINC graph-regression nets: GINNet and TransformerNet with their SignNet
-PE encoder.
+"""ZINC graph-regression nets: GatedGCNNet, GINNet and TransformerNet with
+their SignNet PE encoder.
 
 Port of signnet_basisnet_tpu/models/zinc_models.py:67-166 (`_Base`:
-`sign_inv_module`, `embed_inputs`, `readout_head`), :206-231 (`GINNet`) and
-:298-316 (`TransformerNet`, sparse path).  Signature:
+`sign_inv_module`, `embed_inputs`, `readout_head`), :169-203 (`GatedGCNNet`
+without its LSPE branch), :206-231 (`GINNet`) and :298-316
+(`TransformerNet`, sparse path).  Signature:
 ``model(gb, pos_enc) -> [G]`` scores.  Submodule names follow the flax ones
 (`embedding_h`, `embedding_p`, `embedding_hp`, `embedding_e`,
 `sign_inv_net`, `layer_i` with `layer_i.mlp` for flax's `mlp_i`,
 `mlp_readout`), so the weight bridge (bridge.py) is a name mapping.
 
-`gnn_model` builds GIN and Transformer; the other nets raise
+`gnn_model` builds GatedGCN, GIN and Transformer; the other nets raise
 NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 
 from ..nn.init import Embedding, Linear, init_parameters
 from ..nn.mlp import MLP, MLPReadout
-from .conv import GINConv, GraphTransformerLayer, pool_any
+from .conv import GatedGCNLayer, GINConv, GraphTransformerLayer, pool_any
 from .signnet import GINDeepSigns
 
 
@@ -98,6 +99,31 @@ class ZincNet(nn.Module):
         return self.mlp_readout(hg)[:, 0]
 
 
+class GatedGCNNet(ZincNet):
+    """GatedGCN layers of width hidden_dim (the last one out_dim), on the
+    node and the bond embeddings.  The ZINC net disables graph norm in its
+    layers, as the JAX net does.  The LSPE branch is refused by `ZincNet`
+    (ROADMAP.md queue 1 item 15)."""
+
+    def __init__(self, hidden_dim: int = 95, out_dim: int = 95,
+                 n_layers: int = 16, batch_norm: bool = True,
+                 residual: bool = True, seed: int = 0, **base):
+        super().__init__(hidden_dim=hidden_dim, readout_dim=out_dim, **base)
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            out = hidden_dim if i < n_layers - 1 else out_dim
+            self.add_module(f"layer_{i}", GatedGCNLayer(
+                hidden_dim, out, batch_norm=batch_norm, residual=residual,
+                graph_norm=False))
+        init_parameters(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, gb, pos_enc=None):
+        h, e = self.embed_inputs(gb, pos_enc)
+        for i in range(self.n_layers):
+            h, e = getattr(self, f"layer_{i}")(gb, h, e)
+        return self.readout_head(gb, h)
+
+
 class GINNet(ZincNet):
     def __init__(self, hidden_dim: int = 95, out_dim: int = 95,
                  n_layers: int = 16, batch_norm: bool = True,
@@ -168,8 +194,9 @@ def sign_inv_module(kind: str, hidden: int, phi_out: int, num_layers: int,
     raise ValueError(f"unknown sign_inv_net {kind!r}")
 
 
-_NETS = {"GIN": GINNet, "Transformer": TransformerNet}
-_NOT_PORTED = {"GatedGCN": 11, "GAT": 14, "PNA": 13}
+_NETS = {"GatedGCN": GatedGCNNet, "GIN": GINNet,
+         "Transformer": TransformerNet}
+_NOT_PORTED = {"GAT": 14, "PNA": 13}
 
 
 def gnn_model(name: str, **net_params) -> nn.Module:

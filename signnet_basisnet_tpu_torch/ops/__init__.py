@@ -2,5 +2,7 @@ from .edge_attention import (edge_attention_bwd_plain,
                              edge_softmax_attention_plain,
                              edge_softmax_attention_reference,
                              edge_softmax_attention_tiled)
+from .gatedgcn_gate import (gatedgcn_gate_bwd_plain, gatedgcn_gate_plain,
+                            gatedgcn_gate_reference, gatedgcn_gate_tiled)
 from .spmm_tiled import spmm_tiled, spmm_tiled_plain
 from .tile_dense import spmm_tile_dense, tile_block_adj

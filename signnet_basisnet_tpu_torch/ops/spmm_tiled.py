@@ -45,15 +45,20 @@ def build() -> ctypes.CDLL:
     return _nvcc.load("spmm_tiled", {"spmm_tiled_launch": LAUNCH_ARGTYPES})
 
 
+def edge_in_range(receivers, starts, ends, bn: int):
+    """[E] bool: edge slot e lies inside its destination tile's range."""
+    r = receivers.long()
+    n_tiles = starts.shape[0]
+    t = torch.clamp(r // bn, max=n_tiles - 1)
+    e = torch.arange(r.shape[0], device=r.device)
+    return (r // bn < n_tiles) & (e >= starts.long()[t]) & (e < ends.long()[t])
+
+
 def _tile_mask(senders, receivers, starts, ends, bn: int):
     """[E] bool: edge e counts (inside its destination tile's range, both
     endpoints in that tile)."""
-    s, r = senders.long(), receivers.long()
-    n_tiles = starts.shape[0]
-    t = torch.clamp(r // bn, max=n_tiles - 1)
-    e = torch.arange(s.shape[0], device=s.device)
-    return ((s // bn == r // bn) & (r // bn < n_tiles)
-            & (e >= starts.long()[t]) & (e < ends.long()[t]))
+    return ((senders.long() // bn == receivers.long() // bn)
+            & edge_in_range(receivers, starts, ends, bn))
 
 
 def spmm_tiled_plain(x, senders, receivers, weights, starts, ends, bn: int,

@@ -6,11 +6,14 @@
 Port of the single-device path of signnet_basisnet_tpu/train_zinc.py: PE
 preprocessing -> model -> Adam + plateau LR -> epoch loop with val/test eval.
 The JAX package's configs are read as they are.  The run is on `cuda` unless
-`--device cpu` is given.  The aggregation backend is the config's
-(`data.agg_backend`): with `pallas_tile` the GIN layers run the tile-local
-SpMM kernel on the card; with `pallas_tile` or `tile_dense` the Transformer
-layers run the fused attention kernels there.  Their plain versions run only
-where the tensors lie on the CPU.
+`--device cpu` is given.  The nets are GIN, GatedGCN and Transformer.  The
+aggregation backend is the config's (`data.agg_backend`): with `pallas_tile`
+on a tiled batch (`data.tile`) the GIN layers and the SignNet phi run the
+tile-local SpMM kernel on the card and the GatedGCN layers the fused gate
+kernel; with `pallas_tile` or `tile_dense` the Transformer layers run the
+fused attention kernels there.  Their plain versions run only where the
+tensors lie on the CPU.  The shipped GatedGCN configs set neither option:
+add `data.tile 256 data.agg_backend pallas_tile` to run its kernels.
 
 Not ported yet, and refused: train.mp > 1, checkpoint_dir/resume, LSPE and
 the Laplacian-eigvec loss, the non-lap_pe PE modes, the full-graph

@@ -1,8 +1,9 @@
 """K2/K3, the fused edge-softmax attention: the port's plain version (its
 wrapper on CPU tensors) against the JAX `edge_softmax_attention_tiled` in
 Pallas interpret mode and against `edge_softmax_attention_reference`, on
-packed tile-local batches; and the build and ctypes binding of the CUDA
-kernels, which run only on the card (tests/test_torch_gpu.py).
+packed tile-local batches; and the build and ctypes binding of every CUDA
+kernel of the port (K1-K4), which run only on the card
+(tests/test_torch_gpu.py).
 
 Tolerances, float32:
 - values, 1e-5 (relative and absolute): both sum the same products in f32,
@@ -32,6 +33,8 @@ from signnet_basisnet_tpu_torch.graph import edge_csr
 nvcc_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops._nvcc")
 attn_mod = importlib.import_module(
     "signnet_basisnet_tpu_torch.ops.edge_attention")
+gate_mod = importlib.import_module(
+    "signnet_basisnet_tpu_torch.ops.gatedgcn_gate")
 spmm_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops.spmm_tiled")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -214,7 +217,8 @@ def _c_argtypes(src: str, entry: str):
 @pytest.mark.parametrize("name,entry,argtypes", [
     ("spmm_tiled", "spmm_tiled_launch", spmm_mod.LAUNCH_ARGTYPES),
     ("edge_attention", "edge_attention_fwd", attn_mod.FWD_ARGTYPES),
-    ("edge_attention", "edge_attention_bwd", attn_mod.BWD_ARGTYPES)])
+    ("edge_attention", "edge_attention_bwd", attn_mod.BWD_ARGTYPES),
+    ("gatedgcn_gate", "gatedgcn_gate_fwd", gate_mod.FWD_ARGTYPES)])
 def test_ctypes_argtypes_match_the_c_signatures(name, entry, argtypes):
     with open(nvcc_mod.source_path(name)) as f:
         src = f.read()
@@ -225,7 +229,8 @@ def test_ctypes_argtypes_match_the_c_signatures(name, entry, argtypes):
 @pytest.mark.parametrize("mod,name,entries", [
     (spmm_mod, "spmm_tiled", ("spmm_tiled_launch",)),
     (attn_mod, "edge_attention", ("edge_attention_fwd",
-                                  "edge_attention_bwd"))])
+                                  "edge_attention_bwd")),
+    (gate_mod, "gatedgcn_gate", ("gatedgcn_gate_fwd",))])
 def test_kernels_build_through_the_nvcc_loader(monkeypatch, tmp_path, mod,
                                                name, entries):
     """`build()` of each kernel module goes through `_nvcc.load`: one nvcc

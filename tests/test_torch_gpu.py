@@ -1,4 +1,4 @@
-"""K1, K2 and K3 on the card: the CUDA kernels against their plain
+"""K1, K2, K3 and K4 on the card: the CUDA kernels against their plain
 versions, and the train steps that launch them.
 
 Marked `gpu`: each test asks the `cuda` fixture for the card and skips
@@ -18,6 +18,11 @@ c = sum_d out * ghat from sums of that magnitude and loses a digit to that
 cancellation.  (In bf16 the autograd path forms c from the bf16-rounded
 output, as the JAX glue does, where autograd through the plain version
 uses the unrounded one, so the two are not held to each other there.)
+K4 (the GatedGCN gate) against its plain version: f32 1e-5, bf16 one bf16
+rounding of agg and e_new (2**-7 relative + 1e-3); its autograd path (K4,
+then the plain backward) in f32 against autograd through the plain version
+to the K3 tolerance, since both backwards divide by the gate sums and
+subtract c = agg * ghat.
 """
 import importlib
 
@@ -37,6 +42,8 @@ from signnet_basisnet_tpu_torch.models.conv import batch_csr
 spmm_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops.spmm_tiled")
 attn_mod = importlib.import_module(
     "signnet_basisnet_tpu_torch.ops.edge_attention")
+gate_mod = importlib.import_module(
+    "signnet_basisnet_tpu_torch.ops.gatedgcn_gate")
 
 pytestmark = pytest.mark.gpu
 
@@ -231,6 +238,97 @@ def test_transformer_train_step_on_card_counts_attention_launches(cuda):
         ev(gb)
         assert (f.launches_fwd - fwd, f.launches_bwd - bwd) == (6, 3)
         assert ops.spmm_tiled.launches == k1
+    finally:
+        seg.set_agg_backend("xla")
+    assert torch.isfinite(loss)
+
+
+def _gate_inputs(gb, F, dtype, seed):
+    g = torch.Generator(device=gb.senders.device).manual_seed(seed)
+    n, e = gb.num_nodes, gb.num_edges
+    mk = lambda rows: torch.randn(rows, F, device=gb.senders.device,
+                                  generator=g)
+    return [mk(n).to(dtype), mk(n).to(dtype), mk(n).to(dtype),
+            mk(e).to(dtype)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [68, 77, 70])
+def test_gate_kernel_matches_plain(cuda, dtype, F):
+    """K4's agg and e_new at every row and edge slot, the weight-0 padding
+    edges on the last node included."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    feats = _gate_inputs(gb, F, dtype, seed=F)
+    got = gate_mod._launch(*feats, *_args(gb), gb.extras["dst_ptr"], bn)
+    want = ops.gatedgcn_gate_plain(*feats, *_args(gb), bn)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-3))
+    for name, a, b in zip(("agg", "e_new"), got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), msg=name, **tol)
+
+
+def test_gate_autograd_counter_and_nonlocal_edges(cuda):
+    """One K4 launch per forward and none in the backward (the plain VJP);
+    an in-range edge whose source lies in another tile counts fully, in
+    the kernel as in the plain version and the reference."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    s_far = gb.senders.clone()
+    real = torch.nonzero(gb.edge_mask > 0)[:, 0]
+    pick = real[::17]
+    s_far[pick] = (s_far[pick] + bn) % gb.num_nodes
+    args = (s_far,) + _args(gb)[1:]
+    csr = edge_csr(s_far, gb.receivers, gb.num_nodes)
+    feats = [t.requires_grad_(True)
+             for t in _gate_inputs(gb, 68, torch.float32, seed=1)]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    c1 = torch.randn(gb.num_nodes, 68, device=cuda, generator=g)
+    c2 = torch.randn(gb.num_edges, 68, device=cuda, generator=g)
+
+    def run(fn):
+        agg, e_new = fn(*feats)
+        ((agg * c1).sum() + (e_new * c2).sum()).backward()
+        out = [agg, e_new] + [t.grad for t in feats]
+        for t in feats:
+            t.grad = None
+        return out
+
+    f = ops.gatedgcn_gate_tiled
+    before = f.launches
+    got = run(lambda *a: f(*a, *args, gb.num_nodes, bn, csr))
+    assert f.launches == before + 1
+    want = run(lambda *a: ops.gatedgcn_gate_plain(*a, *args, bn))
+    for name, a, b in zip(("agg", "e_new", "dBh", "dDh", "dEh", "dCe"), got,
+                          want):
+        torch.testing.assert_close(a, b, msg=name, **_grad_tol(b))
+    ref = ops.gatedgcn_gate_reference(*(t.detach() for t in feats),
+                                      *args[:3], gb.num_nodes)
+    for name, a, b in zip(("agg", "e_new"), got, ref):
+        torch.testing.assert_close(a, b, msg=name, rtol=1e-5, atol=1e-5)
+
+
+def test_gatedgcn_train_step_on_card_counts_gate_launches(cuda):
+    """GatedGCNNet under pallas_tile: one K4 per layer per forward and none
+    in the backward; the phi's K1, one per layer forward and one per layer
+    but the first backward."""
+    gb = _batch(n_graphs=40).to(cuda)
+    model = gnn_model("GatedGCN", hidden_dim=32, out_dim=32, n_layers=3,
+                      pos_enc_dim=8, lap_method="sign_inv",
+                      sign_inv_layers=2, phi_out_dim=4,
+                      pe_aggregate="concat").to(cuda)
+    step, ev = build_steps(model, make_zinc_predict(model, "sign_inv"),
+                           adam(model.parameters()))
+    f = ops.gatedgcn_gate_tiled
+    seg.set_agg_backend("pallas_tile")
+    try:
+        k1, k4 = ops.spmm_tiled.launches, f.launches
+        loss = step(gb, 1e-3)["loss"]
+        assert (f.launches - k4, ops.spmm_tiled.launches - k1) == (3, 3)
+        ev(gb)
+        assert (f.launches - k4, ops.spmm_tiled.launches - k1) == (6, 5)
     finally:
         seg.set_agg_backend("xla")
     assert torch.isfinite(loss)

@@ -234,7 +234,7 @@ def test_train_zinc_runs_flagship_config_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (["train.mp", "2"], "item 20"), (["model.model", "GatedGCN"], "item 11"),
+    (["train.mp", "2"], "item 20"), (["model.model", "PNA"], "item 13"),
     (["model.sign_inv_net", "masked_gin"], "item 12"),
     (["model.lap_method", "sign_flip"], "item 15"),
     (["train.checkpoint_dir", "ckpt"], "item 9"),
