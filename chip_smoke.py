@@ -48,7 +48,18 @@ each so a stall shows where it happened:
    the plain path's f32 and f64 runs), warm steps with the K4/K1 share of
    the device time, then train_zinc.run in f32 and bf16 with the launch
    counts read against 16 K4 and 15 K1 per train step, 16 K4 and 8 K1 per
-   eval step and no K2/K3.
+   eval step and no K2/K3;
+6. the port's bench_ops entry point (python -m
+   signnet_basisnet_tpu_torch.bench_ops, and with --packer), through its
+   main(): every section's comparison within its tolerance, each kernel's
+   launch counter equal to the calls the script made (K5, the flat SpMM,
+   runs on no model path: this is its main path), the train steps' launches
+   per step, and the host packers' times.
+
+Phase 1d holds K5 against its plain version (f32 and bf16 at bench_ops'
+shape N = 3072, D = 128; D = 95; N = 300; a non-finite row of x read by a
+counted and by a weight-0 edge) and times it cold and warm beside its plain
+version, torch.sparse.mm and the index_add_ reference.
 
 The last two lines are the kernels' JSON record and the result line.  Any
 failure raises (exit code 1); without a card it exits 2 and prints no
@@ -57,6 +68,7 @@ result.  Imports no JAX and nothing of the JAX package.
 import contextlib
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -74,6 +86,11 @@ OUT_DIR = os.path.join("out", "chip_smoke")
 # float32 FLOP/s outside the tensor cores (the kernel's FMAs run in f32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+
+
+def _worst(a, b):
+    """The larger error of two, NaN if either is (max() would drop it)."""
+    return float("nan") if math.isnan(a) or math.isnan(b) else max(a, b)
 
 
 class Phase:
@@ -108,26 +125,13 @@ def _fail_without_checkout_or_card():
 
 def _cuda_time_ms(fn, iters=50, flush=None):
     """Mean CUDA-event time of fn()'s device work in ms, L2 flushed before
-    each call (the main path finds x cold: other layers' work runs in
-    between)."""
-    import torch
-    for _ in range(3):
-        fn()
-    total = 0.0
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        # hold the card ~1 ms so the host has enqueued fn() before the
-        # start event fires: the events then time the device work alone
-        torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+    each call when `flush` is given (the main path finds x cold: other
+    layers' work runs in between); utils.profiling.cuda_event_ms holds the
+    card ~1 ms before each start event, so the events time the device work
+    alone."""
+    from signnet_basisnet_tpu_torch.utils.profiling import cuda_event_ms
+    ms = cuda_event_ms(fn, iters, flush=flush)
+    return sum(ms) / len(ms)
 
 
 def _profiled_kernel_us(fn, name, iters=20):
@@ -406,6 +410,9 @@ def main():
         "signnet_basisnet_tpu_torch.ops.spmm_tiled")
     gate_mod = importlib.import_module(
         "signnet_basisnet_tpu_torch.ops.gatedgcn_gate")
+    flat_mod = importlib.import_module(
+        "signnet_basisnet_tpu_torch.ops.spmm_flat")
+    from signnet_basisnet_tpu_torch import bench_ops
     from signnet_basisnet_tpu_torch.ops.spmm_tiled import (
         _launch, _tile_mask, edge_in_range, spmm_tiled, spmm_tiled_plain)
     from signnet_basisnet_tpu_torch.train_zinc import run
@@ -428,7 +435,7 @@ def main():
         record["card"] = smi
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
-        _build_all([spmm_mod, attn, gate_mod])
+        _build_all([spmm_mod, attn, gate_mod, flat_mod])
         for name, info in _nvcc.build_info.items():
             print(f"{name}: nvcc {info['seconds']:.1f} s -> "
                   f"{os.path.relpath(info['path'], ROOT)}", flush=True)
@@ -462,8 +469,8 @@ def main():
             nonlocal max_err
             rtol, atol = tols[dtype]
             err = (got.float() - ref.float()).abs()
-            bad = err > atol + rtol * ref.float().abs()
-            max_err = max(max_err, float(err.max()))
+            bad = ~(err <= atol + rtol * ref.float().abs())  # NaN is bad
+            max_err = _worst(max_err, float(err.max()))
             print(f"  {name}: max_abs_err {float(err.max()):.3e} "
                   f"(tol {atol:g} + {rtol:g}*|ref|)", flush=True)
             if bool(bad.any()):
@@ -602,10 +609,10 @@ def main():
             if atol is None:
                 atol = 1e-5 * max(1.0, float(ref.abs().max()))
             err = (got.detach().float() - ref).abs()
-            errs[kname] = max(errs[kname], float(err.max()))
+            errs[kname] = _worst(errs[kname], float(err.max()))
             print(f"  {name}: max_abs_err {float(err.max()):.3e} "
                   f"(tol {atol:g} + {rtol:g}*|ref|)", flush=True)
-            if bool((err > atol + rtol * ref.abs()).any()):
+            if bool((~(err <= atol + rtol * ref.abs())).any()):  # NaN is bad
                 raise AssertionError(f"{name}: kernel disagrees with its "
                                      "plain version")
 
@@ -901,10 +908,144 @@ def main():
                      bound_by=k4_bound["bound_by"], library_ms=None)
         del flush, feats
 
+    with Phase("1d flat SpMM kernel (K5) vs plain"):
+        # bench_ops' flat problem (bench_ops.py:36-77): N, E, D = 3072,
+        # 6912, 128, sources anywhere on the node axis, 90 % of the edges of
+        # weight 1, padded to 1024 with weight-0 edges (node 0 to the last
+        # receiver), 256-node tile ranges over the padded receivers.  f32:
+        # fixed-order f32 sums on both sides, 1e-5; bf16: both round an f32
+        # sum once, one bf16 ulp (2**-7 relative) + 1e-3
+        flat = flat_mod.spmm_flat
+        errs["K5"] = 0.0
+        fN, fE, fD = bench_ops.N, bench_ops.E, bench_ops.D
+
+        def flat_problem(n, d, seed=0):
+            p = bench_ops.flat_problem(n, fE, d, seed)
+            return (torch.from_numpy(p["x"]).to(dev),
+                    [torch.from_numpy(p[k]).to(dev)
+                     for k in ("sp", "rp", "wp", "st", "en")])
+
+        def flat_compare(tag, x, fargs, n, dtype):
+            ptr = flat_mod.dst_pointers(fargs[1], n)
+            got = flat_mod._launch(x, fargs[0], *fargs[2:], ptr, bn)
+            want = flat_mod.spmm_flat_plain(x, *fargs, n, bn)
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"K5 {tag}: {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            attn_check("K5", f"K5 {tag}", got, want,
+                       f32_tol if dtype == torch.float32 else bf16_tol)
+
+        for n, d in ((fN, fD), (fN, 95), (300, fD)):
+            x, fargs = flat_problem(n, d)
+            for dtype in (torch.float32, torch.bfloat16):
+                flat_compare(f"N={n} D={d} {str(dtype)[6:]}", x.to(dtype),
+                             fargs, n, dtype)
+        # a non-finite row of x, read by the weight-0 padding edges (their
+        # source is node 0) and by one counted edge made to read it: only
+        # that edge's destination row may be non-finite
+        x, fargs = flat_problem(fN, fD, seed=1)
+        s_nf = fargs[0].clone()
+        w_f, r_f = fargs[2], fargs[1]
+        e0 = int(torch.nonzero((w_f != 0) & (r_f != r_f[-1]))[0, 0])
+        s_nf[e0] = 0
+        nf_args = [s_nf] + fargs[1:]
+        x[0] = float("inf")
+        got = flat_mod._launch(x, s_nf, *fargs[2:],
+                               flat_mod.dst_pointers(r_f, fN), bn)
+        hit = torch.zeros(fN, dtype=torch.bool, device=dev)
+        hit[r_f[(s_nf == 0) & (w_f != 0)].long()] = True
+        bad = ~torch.isfinite(got).all(1)
+        n_pad_reads = int(((s_nf == 0) & (w_f == 0)).sum())
+        print(f"  K5 non-finite x[0]: read by {int(hit.sum())} counted "
+              f"edges' rows and {n_pad_reads} weight-0 edges; non-finite "
+              f"output rows {int(bad.sum())}", flush=True)
+        if not n_pad_reads or bool(hit[r_f[-1]]):
+            raise AssertionError("K5 non-finite check: no weight-0 edge "
+                                 "alone reads the row")
+        if not torch.equal(bad, hit):
+            raise AssertionError("K5 spread a non-finite row beyond the "
+                                 "counted edges that read it")
+        attn_check("K5", "K5 non-finite x[0], the other rows", got[~hit],
+                   flat_mod.spmm_flat_plain(x, *nf_args, fN, bn)[~hit],
+                   f32_tol)
+
+        # times at bench_ops' shape, f32: the kernel (CSR pointers made
+        # beforehand) cold and warm, the wrapper as a user calls it (it
+        # makes the pointers on the card), the plain version, the gather +
+        # index_add_ reference and torch.sparse.mm on a CSR matrix of the
+        # counted edges
+        x, fargs = flat_problem(fN, fD)
+        s_f, r_f, w_f, st_f, en_f = fargs
+        ptr = flat_mod.dst_pointers(r_f, fN)
+        flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+        k5 = lambda: flat_mod._launch(x, s_f, w_f, st_f, en_f, ptr, bn)
+        k5_ms = _cuda_time_ms(k5, flush=flush)
+        k5_warm_ms = _cuda_time_ms(k5)
+        k5_wrap_ms = _cuda_time_ms(lambda: flat(x, *fargs, fN, bn),
+                                   flush=flush)
+        k5_plain_ms = _cuda_time_ms(
+            lambda: flat_mod.spmm_flat_plain(x, *fargs, fN, bn), flush=flush)
+        k5_index_add_ms = _cuda_time_ms(
+            lambda: flat_mod.spmm_reference(x, s_f, r_f, w_f, fN),
+            flush=flush)
+        counted = edge_in_range(r_f, st_f, en_f, bn) & (w_f != 0)
+        a_csr = torch.sparse_coo_tensor(
+            torch.stack([r_f.long()[counted], s_f.long()[counted]]),
+            w_f[counted], (fN, fN), check_invariants=True
+        ).coalesce().to_sparse_csr()
+        check("K5 library torch.sparse.mm vs plain (yardstick)",
+              torch.sparse.mm(a_csr, x),
+              flat_mod.spmm_flat_plain(x, *fargs, fN, bn), torch.float32)
+        k5_library_ms = _cuda_time_ms(lambda: torch.sparse.mm(a_csr, x),
+                                      flush=flush)
+        # bound of the timed kernel's work: x read at the rows the counted
+        # edges name, the output written at every row, the senders and
+        # weights of every slot (the kernel reads no receivers: the CSR
+        # pointers stand for them), the tile ranges and the pointers read
+        # once; 2 flops per counted edge and feature (f32, no tensor cores)
+        n_counted = int(counted.sum())
+        rows_read = int(torch.unique(s_f[counted]).numel())
+        dst_rows = int(torch.unique(r_f[counted]).numel())
+        e_pad = s_f.shape[0]
+        k5_bytes = ((rows_read + fN) * fD * 4 + e_pad * 8
+                    + (fN + 1 + 2 * st_f.shape[0]) * 4)
+        k5_ops = 2 * n_counted * fD
+        t_b = k5_bytes / PEAK_BYTES_PER_S * 1e3
+        t_o = k5_ops / PEAK_F32_FLOP_PER_S * 1e3
+        k5_bound = dict(bound_ms=max(t_b, t_o),
+                        bound_by="bytes" if t_b >= t_o else "operations",
+                        bytes=k5_bytes, ops=k5_ops, counted_edges=n_counted,
+                        rows_read=rows_read, dst_rows=dst_rows)
+        prof_us = _profiled_kernel_us(k5, "spmm_flat_kernel")
+        print(f"K5 N={fN} D={fD} f32, {e_pad} edge slots: kernel_ms "
+              f"{k5_ms:.4f} cold, {k5_warm_ms:.4f} warm (wrapper with its "
+              f"pointers {k5_wrap_ms:.4f}); plain_ms {k5_plain_ms:.4f}; "
+              f"index_add_ reference {k5_index_add_ms:.4f}; library_ms "
+              f"{k5_library_ms:.4f} (torch.sparse.mm, CSR); bound "
+              f"{k5_bound['bound_ms'] * 1e3:.2f} us by {k5_bound['bound_by']} "
+              f"({k5_bytes / 1e6:.2f} MB, {k5_ops / 1e6:.2f} MFLOP; "
+              f"{n_counted} counted edges reading {rows_read} source rows "
+              f"into {dst_rows} destination rows); kernel / bound "
+              f"{k5_ms / k5_bound['bound_ms']:.2f}; profiler (warm L2) "
+              f"{prof_us} us per launch", flush=True)
+        record.update(flat_bound=k5_bound, flat_warm_ms=k5_warm_ms,
+                      flat_wrapper_ms=k5_wrap_ms,
+                      flat_index_add_ms=k5_index_add_ms,
+                      flat_profiler_us_warm=prof_us)
+        kern5 = dict(name="spmm_flat", route="cuda",
+                     source="signnet_basisnet_tpu_torch/ops/csrc/"
+                            "spmm_flat.cu",
+                     replaces="signnet_basisnet_tpu/ops/pallas_spmm.py:146",
+                     launches=None, max_abs_err=errs["K5"], ms=k5_ms,
+                     plain_ms=k5_plain_ms, bound_ms=k5_bound["bound_ms"],
+                     bound_by=k5_bound["bound_by"], library_ms=k5_library_ms)
+        del flush, a_csr
+
     def reset_counts():
         spmm_tiled.launches = 0
         tiled.launches_fwd = tiled.launches_bwd = 0
         gate.launches = 0
+        flat.launches = 0
 
     # ---------------------------------------------------------------- 2
     def trainer_cfg(extra):
@@ -965,8 +1106,9 @@ def main():
                                                           flush=True))
         torch.cuda.synchronize()
         launches = spmm_tiled.launches
-        if tiled.launches_fwd or tiled.launches_bwd or gate.launches:
-            raise AssertionError("the GIN path launched K2/K3/K4")
+        if (tiled.launches_fwd or tiled.launches_bwd or gate.launches
+                or flat.launches):
+            raise AssertionError("the GIN path launched K2/K3/K4/K5")
         expect = per_train * res.train_steps + per_eval * res.eval_steps
         print(f"  spmm_tiled launches {launches}, expected {per_train} x "
               f"{res.train_steps} train steps + {per_eval} x "
@@ -1003,8 +1145,9 @@ def main():
               f"{expect}", flush=True)
         if spmm_tiled.launches != expect:
             raise AssertionError("bf16 path: wrong K1 launch count")
-        if tiled.launches_fwd or tiled.launches_bwd or gate.launches:
-            raise AssertionError("the GIN path launched K2/K3/K4")
+        if (tiled.launches_fwd or tiled.launches_bwd or gate.launches
+                or flat.launches):
+            raise AssertionError("the GIN path launched K2/K3/K4/K5")
         h = res.history[-1]
         if not np.isfinite([h["train_loss"], h["val_mae"], res.test_mae]).all():
             raise AssertionError(f"bf16: non-finite metrics {res.history}")
@@ -1199,7 +1342,63 @@ def main():
             if name == "f32":
                 kern4["launches"] = got[0]
 
-    kernels = [kern, kern2, kern3, kern4]
+    # ---------------------------------------------------------------- 6
+    with Phase("6 bench_ops (the port's per-kernel benchmark) and --packer"):
+        # the entry point K5 runs on: every count to 0 just before it, read
+        # just after.  Each section's kernels must have launched once per
+        # call the script made; the train steps (no direct kernel call) at
+        # the per-step counts of phases 2-5 (here with SignNet k = 8 for
+        # all three nets, so the Transformer's phi runs K1 under
+        # pallas_tile: 8 forward and 7 transposed), and nothing under xla
+        reset_counts()
+        res = bench_ops.main([])
+        torch.cuda.synchronize()
+        counts = bench_ops.launch_counts()
+        per_step = {
+            "GIN_pallas_tile": {"spmm_tiled": 47},
+            "Transformer_pallas_tile": {"edge_attention_fwd": 10,
+                                        "edge_attention_bwd": 10,
+                                        "spmm_tiled": 15},
+            "GatedGCN_pallas_tile": {"gatedgcn_gate_fwd": 16,
+                                     "spmm_tiled": 15}}
+        steps = res["train_steps"]
+        want = dict.fromkeys(counts, 0)
+        for run_name, n_steps in steps["steps"].items():
+            got_ps = steps["launches_per_step"][run_name]
+            if got_ps != per_step.get(run_name, {}):
+                raise AssertionError(f"bench_ops {run_name}: launches per "
+                                     f"step {got_ps}, expected "
+                                     f"{per_step.get(run_name, {})}")
+            for k, v in got_ps.items():
+                want[k] += int(v * n_steps)
+        for name in ("flat_spmm", "tiled_spmm", "attention", "gatedgcn"):
+            sec = res[name]
+            for k, v in sec["calls"].items():
+                want[k] += v
+            if sec["launches"] != {k: sec["calls"].get(k, 0)
+                                   for k in counts}:
+                raise AssertionError(f"bench_ops {name}: launches "
+                                     f"{sec['launches']} for calls "
+                                     f"{sec['calls']}")
+            for key, v in sec["max_err"].items():
+                print(f"  bench_ops {name} {key}: max_err "
+                      f"{v['max_err']:.3e} (tol {v['atol']:.3g} + "
+                      f"{v['rtol']:g}*|ref|, |ref| <= {v['ref_max']:.3g})",
+                      flush=True)
+                if not (v["ok"] and v["max_err"]
+                        <= v["atol"] + v["rtol"] * v["ref_max"]):
+                    raise AssertionError(f"bench_ops {name} {key}: beyond "
+                                         "its tolerance")
+        print(f"  launches over the run {counts}; calls and steps of the "
+              f"script {want}", flush=True)
+        if counts != want or not counts["spmm_flat"]:
+            raise AssertionError("bench_ops: launch counters differ from "
+                                 "the calls the script made")
+        packer = bench_ops.main(["--packer"])["packer"]
+        record.update(bench_ops=res, bench_ops_packer=packer)
+        kern5["launches"] = counts["spmm_flat"]
+
+    kernels = [kern, kern2, kern3, kern4, kern5]
     record["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=float)

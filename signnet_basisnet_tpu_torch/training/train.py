@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models.pe import apply_lap_method
+from ..utils.profiling import device_memory_stats
 from .metrics import masked_l1
 from .optim import ReduceLROnPlateau, set_lr
 
@@ -135,7 +136,7 @@ def evaluate(eval_step, batches) -> Dict[str, float]:
 
 def _peak_mem_mb() -> Optional[float]:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        return torch.cuda.max_memory_allocated() / 2 ** 20
+        return device_memory_stats("cuda")["peak_mb_in_use"]
     return None
 
 

@@ -2,7 +2,7 @@
 wrapper on CPU tensors) against the JAX `edge_softmax_attention_tiled` in
 Pallas interpret mode and against `edge_softmax_attention_reference`, on
 packed tile-local batches; and the build and ctypes binding of every CUDA
-kernel of the port (K1-K4), which run only on the card
+kernel of the port (K1-K5), which run only on the card
 (tests/test_torch_gpu.py).
 
 Tolerances, float32:
@@ -36,6 +36,7 @@ attn_mod = importlib.import_module(
 gate_mod = importlib.import_module(
     "signnet_basisnet_tpu_torch.ops.gatedgcn_gate")
 spmm_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops.spmm_tiled")
+flat_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops.spmm_flat")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 EDGE_KEYS = ("senders", "receivers", "edge_mask", "tile_starts", "tile_ends")
@@ -70,8 +71,8 @@ def _jax_tiled(x, arrays, bn, dtype=jnp.float32, grads=False):
     with pltpu.force_tpu_interpret_mode():
         if not grads:
             return np.asarray(loss(*args)[1].astype(jnp.float32))
-        (_, out), g = jax.value_and_grad(loss, argnums=(0, 1, 2, 3),
-                                         has_aux=True)(*args)
+        (_, out), g = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1, 2, 3), has_aux=True))(*args)
     return tuple(np.asarray(a.astype(jnp.float32)) for a in (out,) + g)
 
 
@@ -218,7 +219,8 @@ def _c_argtypes(src: str, entry: str):
     ("spmm_tiled", "spmm_tiled_launch", spmm_mod.LAUNCH_ARGTYPES),
     ("edge_attention", "edge_attention_fwd", attn_mod.FWD_ARGTYPES),
     ("edge_attention", "edge_attention_bwd", attn_mod.BWD_ARGTYPES),
-    ("gatedgcn_gate", "gatedgcn_gate_fwd", gate_mod.FWD_ARGTYPES)])
+    ("gatedgcn_gate", "gatedgcn_gate_fwd", gate_mod.FWD_ARGTYPES),
+    ("spmm_flat", "spmm_flat_launch", flat_mod.LAUNCH_ARGTYPES)])
 def test_ctypes_argtypes_match_the_c_signatures(name, entry, argtypes):
     with open(nvcc_mod.source_path(name)) as f:
         src = f.read()
@@ -230,7 +232,8 @@ def test_ctypes_argtypes_match_the_c_signatures(name, entry, argtypes):
     (spmm_mod, "spmm_tiled", ("spmm_tiled_launch",)),
     (attn_mod, "edge_attention", ("edge_attention_fwd",
                                   "edge_attention_bwd")),
-    (gate_mod, "gatedgcn_gate", ("gatedgcn_gate_fwd",))])
+    (gate_mod, "gatedgcn_gate", ("gatedgcn_gate_fwd",)),
+    (flat_mod, "spmm_flat", ("spmm_flat_launch",))])
 def test_kernels_build_through_the_nvcc_loader(monkeypatch, tmp_path, mod,
                                                name, entries):
     """`build()` of each kernel module goes through `_nvcc.load`: one nvcc

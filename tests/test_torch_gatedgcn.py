@@ -126,8 +126,8 @@ def test_gatedgcn_layer_matches_jax(backend, features, graph_norm):
             return (ho * c1).sum() + (eo * c2).sum(), (ho, eo, upd)
 
         with pltpu.force_tpu_interpret_mode():
-            (_, (ja, je, upd)), (gp, gh, ge) = jax.value_and_grad(
-                loss, argnums=(0, 1, 2), has_aux=True)(
+            (_, (ja, je, upd)), (gp, gh, ge) = jax.jit(jax.value_and_grad(
+                loss, argnums=(0, 1, 2), has_aux=True))(
                     var["params"], jnp.asarray(h), jnp.asarray(e))
         th = torch.from_numpy(h).requires_grad_(True)
         te = torch.from_numpy(e).requires_grad_(True)
@@ -227,7 +227,7 @@ def test_gatedgcn_train_step_matches_jax_1_and_3_adam_steps(
                           jgb, True, {"dropout": key}, ["batch_stats"])
         return jl1(pred, jgb)
 
-    jgrads = _flat(jax.grad(jloss)(state.params))
+    jgrads = _flat(jax.jit(jax.grad(jloss))(state.params))
     train_step, _ = jbuild_steps(predict, s["tx"], donate=False)
     jstates, jlosses = [], []
     st = state

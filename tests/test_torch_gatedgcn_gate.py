@@ -147,7 +147,7 @@ def test_grads_match_jax_custom_vjp():
         return (agg * c1).sum() + (e_new * c2).sum()
 
     with pltpu.force_tpu_interpret_mode():
-        want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3)))(
             *(jnp.asarray(a[k]) for k in FEATS))
     want = [np.asarray(g) for g in want]
     tedges = _t(a, EDGES)

@@ -1,5 +1,5 @@
-"""K1, K2, K3 and K4 on the card: the CUDA kernels against their plain
-versions, and the train steps that launch them.
+"""K1, K2, K3, K4 and K5 on the card: the CUDA kernels against their
+plain versions, and the train steps that launch them.
 
 Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 without one, so on a machine with no NVIDIA card they skip with a reason.
@@ -23,13 +23,16 @@ rounding of agg and e_new (2**-7 relative + 1e-3); its autograd path (K4,
 then the plain backward) in f32 against autograd through the plain version
 to the K3 tolerance, since both backwards divide by the gate sums and
 subtract c = agg * ghat.
+K5 (the flat SpMM) against its plain version: f32 1e-5, bf16 one bf16
+rounding (2**-7 relative); a non-finite row of x reaches only the rows of
+the counted edges that read it.
 """
 import importlib
 
 import pytest
 import torch
 
-from signnet_basisnet_tpu_torch import ops
+from signnet_basisnet_tpu_torch import bench_ops, ops
 from signnet_basisnet_tpu_torch.data import (add_lap_pe, choose_budgets,
                                              pack_batches, synthetic_zinc)
 from signnet_basisnet_tpu_torch.graph import edge_csr, from_arrays
@@ -332,3 +335,51 @@ def test_gatedgcn_train_step_on_card_counts_gate_launches(cuda):
     finally:
         seg.set_agg_backend("xla")
     assert torch.isfinite(loss)
+
+
+def _flat_problem(cuda, n, d, dtype, seed=0):
+    """bench_ops' flat SpMM problem (6912 edges, sources anywhere, 90 % of
+    weight 1, padded to 1024, 256-node tile ranges) on the card."""
+    p = bench_ops.flat_problem(n, d=d, seed=seed)
+    args = [torch.from_numpy(p[k]).to(cuda)
+            for k in ("sp", "rp", "wp", "st", "en")]
+    return torch.from_numpy(p["x"]).to(cuda, dtype), args
+
+
+@pytest.mark.parametrize("n,d", [(3072, 128), (3072, 95), (300, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_kernel_matches_plain(cuda, n, d, dtype):
+    """K5 at bench_ops' shape, at D = 95 (not a multiple of 32) and at
+    N = 300 (not a multiple of 256): every row, f32 within 1e-5, bf16 within
+    one bf16 rounding of the same f32 sum (2**-7 relative)."""
+    x, args = _flat_problem(cuda, n, d, dtype)
+    got = ops.spmm_flat(x, *args, n)
+    want = ops.spmm_flat_plain(x, *args, n)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, d)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flat_kernel_confines_a_nonfinite_row_and_counts_launches(cuda):
+    """x[0] = inf, read by counted edges and by the weight-0 padding edges:
+    only the counted edges' destination rows may be non-finite.  One launch
+    per call on the card; forward only."""
+    n = 3072
+    x, args = _flat_problem(cuda, n, 128, torch.float32, seed=1)
+    s, r, w = args[:3]
+    x[0] = float("inf")
+    counted = (s == 0) & (w != 0)
+    hit = torch.zeros(n, dtype=torch.bool, device=cuda)
+    hit[r[counted].long()] = True
+    assert bool(((s == 0) & (w == 0)).any()) and not bool(hit[r[-1]])
+    before = ops.spmm_flat.launches
+    got = ops.spmm_flat(x, *args, n)
+    assert ops.spmm_flat.launches == before + 1
+    bad = ~torch.isfinite(got).all(1)
+    assert torch.equal(bad, hit)
+    want = ops.spmm_flat_plain(x, *args, n)
+    torch.testing.assert_close(got[~hit], want[~hit], rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError):
+        ops.spmm_flat(x.requires_grad_(True), *args, n)
+    assert ops.spmm_flat.launches == before + 1

@@ -56,8 +56,8 @@ def _jax(p, dtype=jnp.float32):
         return (out.astype(jnp.float32) * p["c"]).sum(), out
 
     with pltpu.force_tpu_interpret_mode():
-        (_, out), (gx, gw) = jax.value_and_grad(
-            loss, argnums=(0, 1), has_aux=True)(
+        (_, out), (gx, gw) = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True))(
                 jnp.asarray(p["x"]).astype(dtype), jnp.asarray(p["w"]))
     return tuple(np.asarray(a.astype(jnp.float32)) for a in (out, gx, gw))
 

@@ -108,7 +108,7 @@ def test_slice_train_step_matches_jax_1_and_3_adam_steps(slice_setup):
     tseg.set_agg_backend("pallas_tile")
     try:
         with pltpu.force_tpu_interpret_mode():
-            jgrads = _flat(jax.grad(jloss)(state.params))
+            jgrads = _flat(jax.jit(jax.grad(jloss))(state.params))
             train_step, _ = jbuild_steps(predict, s["tx"], donate=False)
             jstates, jlosses = [], []
             st = state
