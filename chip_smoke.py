@@ -9,19 +9,24 @@ each so a stall shows where it happened:
 
 0. the card's name and power limit (nvidia-smi); build every kernel of the
    ported paths from the checkout's sources, one nvcc per source, all
-   started together (nvcc seconds and the -Xptxas -v summary of each);
+   started together (nvcc seconds and the -Xptxas -v summary of every
+   kernel instance; every K1 and K3 instance must be named and must not
+   spill);
 1. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
-   and bf16, forward and transposed, autograd, a batch with non-tile-local
-   edges), K2/K3 (the fused edge-softmax attention forward and backward;
-   f32 and bf16 at D = 8, 10 and 7, a batch with non-tile-local edges) and
-   K4 (the fused GatedGCN gate; f32 and bf16 at F = 68, 77 and 70, agg and
-   e_new at every slot, the padding slots included, the autograd path, a
-   batch with non-tile-local edges); CUDA-event times of each kernel (K2-K4
-   also without the batch's padding edges), of its plain version and,
-   where one exists, of one library call (a yardstick, never used by the
-   port) beside the bound the card's memory and arithmetic rates put on the
-   same work;
+   and bf16, forward and transposed, at every row width a path runs it
+   with, F = 16, 95, 128, 1088 and 1520, and at 4958; autograd; a batch
+   with non-tile-local edges), K2/K3 (the fused edge-softmax attention
+   forward and backward; f32 and bf16 at D = 8, 10 and 7, K3's dE1 at
+   every slot, a batch with non-tile-local edges) and K4 (the fused
+   GatedGCN gate; f32 and bf16 at F = 68, 77 and 70, agg and e_new at every
+   slot, the padding slots included, the autograd path, a batch with
+   non-tile-local edges); CUDA-event times of each kernel, cold and warm
+   (K1 at each of its row widths, forward and transposed; K2-K4 also
+   without the batch's padding edges), of its plain version and, where one
+   exists, of one library call (a yardstick, never used by the port)
+   beside the bound the card's memory and arithmetic rates put on the same
+   work;
 2. the GIN path: one full-width train step on the card against the same
    step on the CPU (the kernels' plain versions) from the same weights; the
    warm step's time on one fixed batch, f32 and bf16 in turns, with the
@@ -67,6 +72,7 @@ result.  Imports no JAX and nothing of the JAX package.
 """
 import contextlib
 import importlib
+import itertools
 import json
 import math
 import os
@@ -81,6 +87,10 @@ TRANSFORMER_CONFIG = os.path.join("configs",
                                   "transformer_zinc_signinv_gin.json")
 GATEDGCN_CONFIG = os.path.join("configs", "gatedgcn_zinc_signinv_gin.json")
 OUT_DIR = os.path.join("out", "chip_smoke")
+# every row width K1 runs at: GIN 16 (phi layer 1), 95 (the base layers),
+# 1520 (phi layers 2-8: 16 channels of 95); the GatedGCN phi 1088 (16 of
+# 68); bench_ops 128
+K1_FEATS = (16, 95, 128, 1088, 1520)
 
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores (the kernel's FMAs run in f32)
@@ -209,22 +219,42 @@ def _profile_steps(step, batch, kernels, steps=3):
              for e in top])
 
 
+_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|L[ib](\d+)E")
+
+
+def _kernel_label(line):
+    """`name<args>` of the kernel a ptxas line names by its mangled name
+    (f32, bf16 and the integer and bool template arguments in order), or
+    None."""
+    m = re.search(r"_kernelI", line)
+    if not m:
+        return None
+    # the name is the source name of the length its digits give
+    end = m.start() + len("_kernel")
+    name = next((line[end - n:end] for n in range(1, end)
+                 if line[:end - n].endswith(str(n))), None)
+    if name is None:
+        return None
+    args, pos = [], m.end()
+    while a := _TEMPLATE_ARG.match(line, pos):
+        args.append({"f": "f32", "13__nv_bfloat16": "bf16"}.get(
+            a.group(0), a.group(1)))
+        pos = a.end()
+    return f"{name}<{', '.join(args)}>"
+
+
 def _ptxas_summary(report):
-    """One line per compiled kernel from nvcc's -Xptxas -v report: its
-    name and type, registers, spills."""
-    out, name = [], None
+    """(label, registers, spill stores, spill loads) of every kernel
+    instance nvcc's -Xptxas -v report names."""
+    out, name, spill = [], None, None
     for line in report.splitlines():
-        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)(Lb([01]))?",
-                      line)
-        if "Compiling entry function" in line and m:
-            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
-                    + (f", transpose={m.group(4)}" if m.group(3) else "")
-                    + ">")
+        if "Compiling entry function" in line:
+            name = _kernel_label(line)
         elif name and "spill" in line:
-            spill = line.split(",", 1)[1].strip()
+            spill = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
         elif name and "Used" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{name}: {regs} registers, {spill}")
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append((name, regs, *spill))
             name = None
     return out
 
@@ -436,13 +466,30 @@ def main():
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
         _build_all([spmm_mod, attn, gate_mod, flat_mod])
+        instances = {}
         for name, info in _nvcc.build_info.items():
             print(f"{name}: nvcc {info['seconds']:.1f} s -> "
                   f"{os.path.relpath(info['path'], ROOT)}", flush=True)
-            for line in _ptxas_summary(info["ptxas"]):
-                print(f"  ptxas: {line}", flush=True)
+            for label, regs, st, ld in _ptxas_summary(info["ptxas"]):
+                print(f"  ptxas: {label}: {regs} registers, {st} bytes "
+                      f"spill stores, {ld} bytes spill loads", flush=True)
+                instances[label] = (regs, st, ld)
         record["nvcc_seconds"] = {k: v["seconds"]
                                   for k, v in _nvcc.build_info.items()}
+        record["ptxas"] = instances
+        # K1 (types x vector widths x lanes per row x directions) and K3
+        # (types x layouts): every instance named, none spilling
+        redesigned = {k: v for k, v in instances.items()
+                      if k.startswith(("spmm_tiled_kernel<",
+                                       "attn_bwd_kernel<",
+                                       "attn_bwd_vec_kernel<"))}
+        n_k1 = sum(k.startswith("spmm_tiled_kernel<") for k in redesigned)
+        if n_k1 != 48 or len(redesigned) != 52:
+            raise AssertionError(f"expected 48 K1 and 4 K3 instances in the "
+                                 f"ptxas report, found {sorted(redesigned)}")
+        spilled = {k: v for k, v in redesigned.items() if v[1] or v[2]}
+        if spilled:
+            raise AssertionError(f"K1/K3 instances spill: {spilled}")
 
     # ---------------------------------------------------------------- 1
     with Phase("1 kernel vs plain"):
@@ -477,13 +524,18 @@ def main():
                 raise AssertionError(f"{name}: kernel disagrees with its plain "
                                      f"version at {int(bad.sum())} entries")
 
-        for feat in (16, 95, 1520):
+        # every F a path launches K1 with (GIN 16, 95, 1520; the GatedGCN
+        # phi 1088; bench_ops 128), 256 and 512 (32 and 64 lanes per row)
+        # and a GINConv override's 74 * 67 = 4958, which takes the
+        # one-element loads: each picks its own variant
+        for feat in K1_FEATS + (256, 512, 4958):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(nb, feat, device=dev, generator=gen).to(dtype)
+                variant = spmm_mod.kernel_variant(feat, dtype, True, bn)
                 for transpose in (False, True):
                     got = _launch(x, *args, csr, bn, transpose)
                     ref = spmm_tiled_plain(x, *args, bn, transpose=transpose)
-                    check(f"F={feat} {str(dtype)[6:]} "
+                    check(f"F={feat} {str(dtype)[6:]} (vec, group) {variant} "
                           f"{'transposed' if transpose else 'forward'}",
                           got, ref, dtype)
         # autograd through the wrapper (forward + transposed kernel)
@@ -504,88 +556,121 @@ def main():
         far_csr = edge_csr(s_far, gb.receivers, nb)
         kept = _tile_mask(*far_args[:2], *far_args[3:], bn)
         assert int((~kept & (gb.edge_mask > 0)).sum()) == pick.numel()
-        x = torch.randn(nb, 1520, device=dev, generator=gen)
-        for transpose in (False, True):
+        for feat, transpose in itertools.product((1520, 95), (False, True)):
+            x = torch.randn(nb, feat, device=dev, generator=gen)
             got = _launch(x, *far_args, far_csr, bn, transpose)
             ref = spmm_tiled_plain(x, *far_args, bn, transpose=transpose)
             drop = spmm_tiled_plain(x, s_far, gb.receivers,
                                     gb.edge_mask * kept, *args[3:], bn,
                                     transpose=transpose)
-            check(f"non-local edges {'transposed' if transpose else 'forward'}",
+            check(f"non-local edges F={feat} "
+                  f"{'transposed' if transpose else 'forward'}",
                   got, ref, torch.float32)
             check("  ... same as with them removed", got, drop,
                   torch.float32)
 
-        # times at F = 1520 (phi layers 1-7), f32
-        x = torch.randn(nb, 1520, device=dev, generator=gen)
+        # times in f32 at every F a path launches K1 with, forward and
+        # transposed, cold (L2 flushed before each launch, as the main path
+        # finds x) and warm; torch.sparse.mm on a CSR matrix of the counted
+        # edges as the yardstick at F = 1520 and 95.  The bound of this
+        # batch's work: x read only at the rows that counted edges reach
+        # (forward: their sources; transposed: their destinations), the
+        # output written at every row once, and the index arrays the kernel
+        # reads once each (forward: senders, weights, dst_ptr; transposed:
+        # src_order, receivers, weights, src_ptr; both: the tile ranges);
+        # 2 flops per counted edge and feature
         flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
-        kernel_ms = _cuda_time_ms(
-            lambda: _launch(x, *args, csr, bn, False), flush=flush)
-        kernel_t_ms = _cuda_time_ms(
-            lambda: _launch(x, *args, csr, bn, True), flush=flush)
-        plain_ms = _cuda_time_ms(lambda: spmm_tiled_plain(x, *args, bn),
-                                 flush=flush)
         ok = _tile_mask(gb.senders, gb.receivers, *args[3:], bn)
+        counted = ok & (gb.edge_mask != 0)
+        n_counted = int(counted.sum())
+        rows_read = {False: int(torch.unique(gb.senders[counted]).numel()),
+                     True: int(torch.unique(gb.receivers[counted]).numel())}
+        n_index = {False: 2 * eb + nb + 1, True: 3 * eb + nb + 1}
         rows, cols = gb.receivers.long()[ok], gb.senders.long()[ok]
         a_csr = torch.sparse_coo_tensor(
             torch.stack([rows, cols]), gb.edge_mask[ok], (nb, nb),
             check_invariants=True).coalesce().to_sparse_csr()
-        lib = torch.sparse.mm(a_csr, x)
-        check("library torch.sparse.mm vs plain (yardstick)", lib,
-              spmm_tiled_plain(x, *args, bn), torch.float32)
-        library_ms = _cuda_time_ms(lambda: torch.sparse.mm(a_csr, x),
-                                   flush=flush)
-        # the bound of this batch's work: x is read only at the rows that
-        # counted edges reach (forward: their sources; transposed: their
-        # destinations), the output written at every row once, and the
-        # index arrays the kernel reads once each (forward: senders,
-        # weights, dst_ptr; transposed: src_order, receivers, weights,
-        # src_ptr; both: the tile ranges)
-        counted = ok & (gb.edge_mask != 0)
-        n_counted = int(counted.sum())
-        flops = 2 * n_counted * 1520
-        t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-        bounds = {}
-        for transpose, reached, n_index in (
-                (False, gb.senders[counted], 2 * eb + nb + 1),
-                (True, gb.receivers[counted], 3 * eb + nb + 1)):
-            rows_read = int(torch.unique(reached).numel())
-            bytes_moved = ((rows_read + nb) * 1520 * 4
-                           + (n_index + 2 * n_tiles) * 4)
-            t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-            bounds[transpose] = dict(
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=bytes_moved, rows_read=rows_read)
-        bound_ms = bounds[False]["bound_ms"]
-        bound_by = bounds[False]["bound_by"]
-        print(f"spmm_tiled F=1520 f32: kernel_ms {kernel_ms:.4f} "
-              f"(transposed {kernel_t_ms:.4f}), plain_ms {plain_ms:.4f}, "
-              f"library_ms {library_ms:.4f} (torch.sparse.mm, CSR), "
-              f"{flops / 1e6:.1f} MFLOP over {n_counted} counted edges",
+        k1_times = {}
+        for feat in K1_FEATS:
+            x = torch.randn(nb, feat, device=dev, generator=gen)
+            t = {"variant": spmm_mod.kernel_variant(feat, x.dtype, True, bn)}
+            for transpose in (False, True):
+                fn = lambda: _launch(x, *args, csr, bn, transpose)
+                d = "transposed" if transpose else "forward"
+                t[f"{d}_cold_ms"] = _cuda_time_ms(fn, flush=flush)
+                t[f"{d}_warm_ms"] = _cuda_time_ms(fn)
+                t[f"{d}_profiler_us"] = _profiled_kernel_us(
+                    fn, "spmm_tiled_kernel")
+                bytes_moved = ((rows_read[transpose] + nb) * feat * 4
+                               + (n_index[transpose] + 2 * n_tiles) * 4)
+                t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+                t_ops = 2 * n_counted * feat / PEAK_F32_FLOP_PER_S * 1e3
+                t[f"{d}_bound_ms"] = max(t_bytes, t_ops)
+                t[f"{d}_bound_by"] = ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+                t[f"{d}_bytes"] = bytes_moved
+            if feat in (1520, 95):
+                lib = torch.sparse.mm(a_csr, x)
+                check(f"library torch.sparse.mm F={feat} vs plain "
+                      "(yardstick)", lib, spmm_tiled_plain(x, *args, bn),
+                      torch.float32)
+                t["library_ms"] = _cuda_time_ms(
+                    lambda: torch.sparse.mm(a_csr, x), flush=flush)
+            if feat == 1520:
+                t["plain_ms"] = _cuda_time_ms(
+                    lambda: spmm_tiled_plain(x, *args, bn), flush=flush)
+            print(f"spmm_tiled F={feat} f32 (vec, group) {t['variant']}: "
+                  + "; ".join(
+                      f"{d} {t[f'{d}_cold_ms'] * 1e3:.2f} us cold, "
+                      f"{t[f'{d}_warm_ms'] * 1e3:.2f} us warm "
+                      f"(profiler {t[f'{d}_profiler_us']} us), bound "
+                      f"{t[f'{d}_bound_ms'] * 1e3:.2f} us by "
+                      f"{t[f'{d}_bound_by']} ({t[f'{d}_bytes'] / 1e6:.2f} "
+                      f"MB), cold / bound "
+                      f"{t[f'{d}_cold_ms'] / t[f'{d}_bound_ms']:.2f}"
+                      for d in ("forward", "transposed"))
+                  + (f"; library_ms {t['library_ms'] * 1e3:.2f} us "
+                     "(torch.sparse.mm, CSR)" if "library_ms" in t else "")
+                  + (f"; plain_ms {t['plain_ms'] * 1e3:.2f} us"
+                     if "plain_ms" in t else ""), flush=True)
+            k1_times[feat] = t
+        print(f"  {n_counted} counted edges; x read at {rows_read[False]} "
+              f"(forward) and {rows_read[True]} (transposed) of {nb} rows",
               flush=True)
-        for transpose, b in bounds.items():
-            k_ms = kernel_t_ms if transpose else kernel_ms
-            print(f"  bound {'transposed' if transpose else 'forward'}: "
-                  f"{b['bound_ms'] * 1e3:.2f} us by {b['bound_by']} "
-                  f"({b['bytes'] / 1e6:.2f} MB: x read at {b['rows_read']} "
-                  f"of {nb} rows, output at all {nb}); kernel / bound "
-                  f"{k_ms / b['bound_ms']:.2f}", flush=True)
+        # yardsticks of the timer and the card: the timer's floor (a
+        # one-element add_) and a plain copy of x at F = 1520 (read and
+        # write 21.8 MB each), cold and warm
+        one = torch.zeros(1, device=dev)
+        x = torch.randn(nb, 1520, device=dev, generator=gen)
+        for name, fn in (("floor", lambda: one.add_(1.0)),
+                         ("copy_1520", lambda: x.clone())):
+            record[f"{name}_ms"] = {"cold": _cuda_time_ms(fn, flush=flush),
+                                    "warm": _cuda_time_ms(fn)}
+        print(f"  yardsticks: a one-element add_ "
+              f"{record['floor_ms']['cold'] * 1e3:.2f} us cold, "
+              f"{record['floor_ms']['warm'] * 1e3:.2f} us warm (the "
+              f"timer's floor); x.clone() of [{nb}, 1520] f32 "
+              f"({2 * x.numel() * 4 / 1e6:.1f} MB moved) "
+              f"{record['copy_1520_ms']['cold'] * 1e3:.2f} us cold, "
+              f"{record['copy_1520_ms']['warm'] * 1e3:.2f} us warm",
+              flush=True)
         # cross-check of the event times: the profiler's device time of the
         # kernel itself (CUPTI), warm L2, back to back
+        x = torch.randn(nb, 1520, device=dev, generator=gen)
         prof_us = _profiled_kernel_us(
             lambda: _launch(x, *args, csr, bn, False), "spmm_tiled_kernel")
-        print(f"  profiler: spmm_tiled_kernel {prof_us} us per launch "
+        print(f"  profiler: spmm_tiled_kernel F=1520 {prof_us} us per launch "
               "(warm L2)", flush=True)
-        record.update(kernel_profiler_us_warm=prof_us)
+        t = k1_times[1520]
+        record.update(kernel_profiler_us_warm=prof_us, k1_times=k1_times)
         kern = dict(name="spmm_tiled", route="cuda",
                     source="signnet_basisnet_tpu_torch/ops/csrc/spmm_tiled.cu",
                     replaces="signnet_basisnet_tpu/ops/pallas_spmm.py:245",
-                    launches=None, max_abs_err=max_err, ms=kernel_ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms)
-        record.update(kernel_transposed_ms=kernel_t_ms,
-                      bound_transposed_ms=bounds[True]["bound_ms"])
+                    launches=None, max_abs_err=max_err,
+                    ms=t["forward_cold_ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["forward_bound_ms"],
+                    bound_by=t["forward_bound_by"],
+                    library_ms=t["library_ms"])
         del x, flush, a_csr, lib
 
     with Phase("1b attention kernels (K2, K3) vs plain"):
@@ -644,6 +729,9 @@ def main():
                        f32_tol if dtype == torch.float32 else bf16_tol)
             ghat = g / (den[:, :, None] + 1e-6)
             c = (out.float() * ghat).sum(-1)
+            # K3 allocates dE1 without zeroing it and must write every
+            # slot: leave NaNs in the memory the allocator hands it next
+            torch.full(E1.shape, float("nan"), device=dev)
             got = attn._launch_bwd(Q, K, V, E1, ghat, c, *edge_args,
                                    edge_csr_, bn)
             want = attn.edge_attention_bwd_plain(Q, K, V, E1, ghat, c,
@@ -660,8 +748,11 @@ def main():
 
         for H, D in ((8, 8), (8, 10), (8, 7)):
             for dtype in (torch.float32, torch.bfloat16):
-                attn_compare(f"H={H} D={D} {str(dtype)[6:]}", args, csr, H,
-                             D, dtype, autograd=dtype == torch.float32)
+                layout = ("vector" if attn.bwd_variant(H, D, True)
+                          else "general")
+                attn_compare(f"H={H} D={D} {str(dtype)[6:]} (K3 {layout})",
+                             args, csr, H, D, dtype,
+                             autograd=dtype == torch.float32)
         # the batch with non-tile-local edges of phase 1: dropped by both
         attn_compare("non-local edges H=8 D=8 float32", far_args, far_csr,
                      8, 8, torch.float32, autograd=True)
@@ -683,6 +774,13 @@ def main():
                     gb.edge_mask, *args[3:], csr, bn)
         k3_ms = _cuda_time_ms(lambda: attn._launch_bwd(*bwd_args),
                               flush=flush)
+        warm = {"K2": _cuda_time_ms(lambda: attn._launch_fwd(*fwd_args)),
+                "K3": _cuda_time_ms(lambda: attn._launch_bwd(*bwd_args))}
+        print(f"  warm (CUDA events, L2 not flushed): K2 "
+              f"{warm['K2'] * 1e3:.2f} us, K3 {warm['K3'] * 1e3:.2f} us "
+              f"(K3 layout: {'vector' if attn.bwd_variant(H, D, True) else 'general'})",
+              flush=True)
+        record.update(attention_warm_ms=warm)
         # the same launches on the batch without its padding edges (weight
         # 0, all on its last node and last in the edge arrays, so that one
         # row's warp walks them 32 at a time): how much of each kernel's
@@ -752,7 +850,9 @@ def main():
                   f"kernel / bound {k_ms / b['bound_ms']:.2f}", flush=True)
         prof = {kname: _profiled_kernel_us(fn, kn) for kname, fn, kn in (
             ("K2", lambda: attn._launch_fwd(*fwd_args), "attn_fwd_kernel"),
-            ("K3", lambda: attn._launch_bwd(*bwd_args), "attn_bwd_kernel"))}
+            # "attn_bwd" names both K3 layouts (attn_bwd_kernel and
+            # attn_bwd_vec_kernel)
+            ("K3", lambda: attn._launch_bwd(*bwd_args), "attn_bwd"))}
         print(f"  profiler (warm L2): {prof} us per launch", flush=True)
         record.update(attention_profiler_us_warm=prof,
                       attention_bounds=attn_bounds)
@@ -1202,7 +1302,7 @@ def main():
             record[f"transformer_warm_{name}_step_ms"] = v
         for name, step in (("f32", t_step), ("bf16", bf16_step)):
             prof = _profile_steps(step, t_batch, ["attn_fwd_kernel",
-                                                  "attn_bwd_kernel"])
+                                                  "attn_bwd"])
             print(f"  profiler, Transformer {name}: {prof}", flush=True)
             record[f"transformer_warm_{name}_step_profile"] = prof
         del bf16_model, bf16_step, t_step, t_batch

@@ -24,8 +24,12 @@ the edge modulation E1 [E, H, D]; per destination node n and head h:
   `torch.autograd.Function`: the forward is K2 and keeps the per-head
   denominator den [N, H] f32; the backward forms ghat = g / (den + 1e-6) and
   c = sum_d out * ghat in plain torch, as the JAX glue `_attn_bwd` does, then
-  runs K3 (one launch, two passes) for dQ, dK, dV and dE1.  On a CUDA tensor
-  it launches or raises; on CPU tensors it runs the plain version.
+  runs K3 (one launch, two passes) for dQ, dK, dV and dE1.  K3 writes every
+  dE1 slot (zeros where no edge counts), so its output is allocated, not
+  zero-filled.  `bwd_variant` picks K3's layout from the shape: a row in
+  registers, D/4 lanes per head (D a multiple of 4, H*D/4 dividing 32: the
+  shipped H = D = 8), or the general one (D = 7, 10).  On a CUDA tensor it
+  launches or raises; on CPU tensors it runs the plain version.
 
 Q is pre-scaled by 1/sqrt(D) in its own type (the scale itself rounded to
 that type), as the JAX wrapper scales it before its kernel, so in bf16 the
@@ -55,8 +59,9 @@ FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_void_p])
 # edge_attention_bwd(q, k, v, e1, ghat, c, dq, dk, dv, de1, senders,
 #                    receivers, w, starts, ends, dst_ptr, src_order, src_ptr,
-#                    num_nodes, num_heads, head_dim, bn, is_bf16, inv, stream)
-BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
+#                    num_nodes, num_edges, num_heads, head_dim, bn, is_bf16,
+#                    vec, inv, stream)
+BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -140,6 +145,16 @@ def edge_attention_bwd_plain(Q, K, V, E1, ghat, c, senders, receivers,
     return dq, dk, dv, de1
 
 
+def bwd_variant(H: int, D: int, aligned: bool) -> int:
+    """K3's layout: 1, the vector one (a row's H*D features in H*D/4 lanes,
+    4 a lane, D/4 lanes a head), where D is a multiple of 4, H*D/4 divides
+    32 and the feature rows are `aligned` to 4 elements; else 0, the
+    general one."""
+    lanes = H * D // 4
+    return int(D % 4 == 0 and 0 < lanes <= 32 and 32 % lanes == 0
+               and aligned)
+
+
 def _check(Q, K, V, E1, ints, num_ptr: int, bn: int, n_tiles: int):
     if Q.dtype not in (torch.float32, torch.bfloat16) or Q.dim() != 3:
         raise TypeError(f"edge attention kernel takes f32 or bf16 Q [N, H, D],"
@@ -206,17 +221,23 @@ def _launch_bwd(Q, K, V, E1, ghat, c, senders, receivers, w, starts, ends,
         raise ValueError("ghat must be [N, H, D] and c [N, H]")
     w = w.to(torch.float32).contiguous()
     N, H, D = Q.shape
+    if (N + E1.shape[0]) * H * D >= 2 ** 31:
+        raise ValueError("edge attention backward kernel takes (N + E) * H "
+                         "* D < 2**31 (32-bit offsets)")
     lib = build()
     f32 = dict(dtype=torch.float32, device=Q.device)
     dq, dk, dv = (torch.empty(Q.shape, **f32) for _ in range(3))
-    de1 = torch.zeros(E1.shape, **f32)
+    de1 = torch.empty(E1.shape, **f32)  # K3 writes every slot
+    row_bytes = 4 * Q.element_size()
+    aligned = (all(t.data_ptr() % row_bytes == 0 for t in (Q, K, V, E1))
+               and ghat.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(Q.device).cuda_stream
     err = lib.edge_attention_bwd(
         *map(_addr, (Q, K, V, E1, ghat, c, dq, dk, dv, de1, senders,
                      receivers, w, starts, ends, dst_ptr, src_order,
                      src_ptr)),
-        N, H, D, bn, int(Q.dtype == torch.bfloat16), _inv_sqrt(D, Q.dtype),
-        stream)
+        N, E1.shape[0], H, D, bn, int(Q.dtype == torch.bfloat16),
+        bwd_variant(H, D, aligned), _inv_sqrt(D, Q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"edge attention backward kernel launch failed: "
                            f"CUDA error {err}")

@@ -16,7 +16,12 @@ reached only through them does not leak into the output.
   `transpose=1`, for dx = A^T g in the backward.  There is no fallback: a
   failed build or launch raises.
   The kernel's design and its bound are noted in its source: memory-bound,
-  about 12 us at N=3584, F=1520 (f32) on an H100 at 3.35 TB/s.
+  about 12 us at N=3584, F=1520 (f32) on an H100 at 3.35 TB/s.  Each
+  row's edges are walked once; `kernel_variant` picks, from the shape, the
+  features per load (16 bytes where F and the pointers allow it, else one
+  element) and the lanes per row (several rows a warp for narrow F, up to
+  4 warps a row for wide F).  Every variant is a kernel of the same
+  source.
 - On CPU tensors it runs `spmm_tiled_plain`, the same function in plain
   torch (index_select + index_add_ with the tile-locality mask).
 - dw_e = g[dst_e] . x[src_e], only when the weights need a gradient, is plain
@@ -36,8 +41,15 @@ import torch
 from . import _nvcc
 
 # spmm_tiled_launch(x, out, senders, receivers, w, starts, ends, ptr, order,
-#                   num_nodes, num_feat, bn, is_bf16, transpose, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#                   num_nodes, num_feat, bn, is_bf16, transpose, vec, group,
+#                   stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+# the kernel's vectors per lane per edge (`vecs_per_edge` in the source), by
+# features per load
+_VECS_PER_EDGE = {1: 8, 4: 2, 8: 2}
+# lanes per row the kernel takes
+_GROUPS = (4, 8, 16, 32, 64, 128)
 
 
 def build() -> ctypes.CDLL:
@@ -52,6 +64,23 @@ def edge_in_range(receivers, starts, ends, bn: int):
     t = torch.clamp(r // bn, max=n_tiles - 1)
     e = torch.arange(r.shape[0], device=r.device)
     return (r // bn < n_tiles) & (e >= starts.long()[t]) & (e < ends.long()[t])
+
+
+def kernel_variant(num_feat: int, dtype, aligned: bool, bn: int):
+    """(vec, group) of the kernel for rows of `num_feat` features of `dtype`
+    in tiles of `bn`: vec features per load, 16 bytes (4 f32, 8 bf16) when
+    num_feat is a multiple of it and x and out are 16-byte `aligned`, else
+    1; group lanes per row, the fewest of 4, 8, 16, 32, 64, 128 whose
+    loads cover the row in one pass (a row above 32 lanes takes group / 32
+    warps), widened until the 32 / group rows of a warp divide bn (so that
+    they share a tile)."""
+    wide = 16 // torch.tensor([], dtype=dtype).element_size()
+    vec = wide if aligned and num_feat % wide == 0 else 1
+    need = -(-num_feat // vec) / _VECS_PER_EDGE[vec]
+    group = next((g for g in _GROUPS if g >= need), _GROUPS[-1])
+    while group < 32 and bn % (32 // group):
+        group *= 2
+    return vec, group
 
 
 def _tile_mask(senders, receivers, starts, ends, bn: int):
@@ -101,12 +130,15 @@ def _launch(x, senders, receivers, weights, starts, ends, csr, bn: int,
     w = weights.to(torch.float32).contiguous()
     lib = build()
     out = torch.empty_like(x)
+    vec, group = kernel_variant(num_feat, x.dtype, x.data_ptr() % 16 == 0,
+                                bn)
     addr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.spmm_tiled_launch(
         addr(x), addr(out), addr(senders), addr(receivers), addr(w),
         addr(starts), addr(ends), addr(ptr), addr(order), num_nodes,
-        num_feat, bn, int(x.dtype == torch.bfloat16), int(transpose), stream)
+        num_feat, bn, int(x.dtype == torch.bfloat16), int(transpose), vec,
+        group, stream)
     if err != 0:
         raise RuntimeError(f"spmm_tiled kernel launch failed: CUDA error {err}")
     spmm_tiled.launches += 1

@@ -273,3 +273,34 @@ def test_kernels_build_through_the_nvcc_loader(monkeypatch, tmp_path, mod,
         fn = getattr(lib, e)
         assert fn.restype is ctypes.c_int and fn.argtypes
     assert "Used 40 registers" in nvcc_mod.build_info[name]["ptxas"]
+
+
+@pytest.mark.parametrize("H,D,aligned,want", [
+    (8, 8, True, 1),     # the shipped Transformer: 2 lanes a head
+    (8, 8, False, 0),    # rows off a 4-element boundary
+    (8, 10, True, 0),    # D not a multiple of 4
+    (8, 7, True, 0),     # the masked Transformer's D
+    (4, 4, True, 1),     # 1 lane a head, 8 edges at once
+    (2, 16, True, 1),    # 4 lanes a head
+    (8, 16, True, 1),    # a row in all 32 lanes
+    (3, 4, True, 0),     # 3 lanes a row do not divide 32
+    (16, 16, True, 0),   # a row wider than a warp's 128 features
+])
+def test_bwd_variant_picks_the_vector_layout_where_heads_line_up(H, D,
+                                                                 aligned,
+                                                                 want):
+    assert attn_mod.bwd_variant(H, D, aligned) == want
+
+
+def test_bwd_variant_mirrors_the_source():
+    """The C entry refuses the vector layout exactly where the host would
+    not pick it."""
+    with open(nvcc_mod.source_path("edge_attention")) as f:
+        src = f.read()
+    assert ("if (vec && (head_dim % 4 || lpr > 32 || 32 % lpr)) return "
+            "(int)cudaErrorInvalidValue;") in src
+    for H in range(1, 20):
+        for D in range(1, 20):
+            lpr = H * D // 4
+            refused = D % 4 != 0 or lpr > 32 or 32 % lpr != 0
+            assert attn_mod.bwd_variant(H, D, True) == int(not refused)

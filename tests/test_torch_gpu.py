@@ -70,20 +70,99 @@ def _args(gb):
             gb.extras["tile_ends"])
 
 
+def _far_batch(gb, bn):
+    """The batch with every 17th real edge's source moved to another tile:
+    (args, csr); both versions must drop those edges."""
+    s_far = gb.senders.clone()
+    real = torch.nonzero(gb.edge_mask > 0)[:, 0]
+    pick = real[::17]
+    s_far[pick] = (s_far[pick] + bn) % gb.num_nodes
+    return (s_far,) + _args(gb)[1:], edge_csr(s_far, gb.receivers,
+                                              gb.num_nodes)
+
+
+def _spmm_check(x, args, csr, bn, transpose):
+    got = spmm_mod._launch(x, *args, csr, bn, transpose)
+    ref = ops.spmm_tiled_plain(x, *args, bn, transpose=transpose)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    tol = 1e-5 if x.dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# every F a path launches K1 with (16, 95, 1520 GIN; 1088 the GatedGCN phi;
+# 128 bench_ops), 256 and 512 (32 and 64 lanes per row) and a GINConv
+# override's 4958: together they take every load width (16 bytes, one
+# element) and lanes per row (4 to 128)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("feat", [16, 95, 1520])
+@pytest.mark.parametrize("feat", [16, 95, 128, 256, 512, 1088, 1520, 4958])
 def test_kernel_matches_plain(cuda, dtype, transpose, feat):
     gb = _batch().to(cuda)
     g = torch.Generator(device=cuda).manual_seed(feat)
     x = torch.randn(gb.num_nodes, feat, device=cuda, generator=g).to(dtype)
     bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
-    got = spmm_mod._launch(x, *_args(gb), batch_csr(gb), bn, transpose)
-    ref = ops.spmm_tiled_plain(x, *_args(gb), bn, transpose=transpose)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype
-    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    _spmm_check(x, _args(gb), batch_csr(gb), bn, transpose)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat", [16, 128, 1520])
+def test_kernel_one_element_loads_on_unaligned_rows(cuda, dtype, feat):
+    """x that starts off a 16-byte boundary takes the one-element loads,
+    at the lanes per row its width gives, both ways and on the batch with
+    non-tile-local edges."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    flat = torch.randn(gb.num_nodes * feat + 1, device=cuda, generator=g)
+    x = flat.to(dtype)[1:].view(gb.num_nodes, feat)
+    assert x.data_ptr() % 16 and spmm_mod.kernel_variant(
+        feat, dtype, False, bn)[0] == 1
+    for args, csr in ((_args(gb), batch_csr(gb)), _far_batch(gb, bn)):
+        for transpose in (False, True):
+            _spmm_check(x, args, csr, bn, transpose)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat", [16, 95, 1520])
+def test_kernel_drops_nonlocal_edges_of_a_batch(cuda, dtype, feat):
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    args, csr = _far_batch(gb, bn)
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    x = torch.randn(gb.num_nodes, feat, device=cuda, generator=g).to(dtype)
+    for transpose in (False, True):
+        _spmm_check(x, args, csr, bn, transpose)
+
+
+@pytest.mark.parametrize("feat", [16, 1520])
+def test_kernel_rows_beyond_what_shared_memory_holds(cuda, feat):
+    """Rows with more counted edges than a warp keeps in shared memory
+    (256): each lane then walks its row's edges itself; the sums must not
+    change.  Two tiles of 256 nodes; in tile 0, rows 8-15 take 40 edges
+    each (F = 16 packs them in one warp: 320) and row 3 takes 400 (F =
+    1520: one row a warp), all from source 5 (the transposed walk's long
+    row), with weight-0 and non-tile-local edges among them."""
+    bn, n = 256, 512
+    g = torch.Generator().manual_seed(feat)
+    deg = torch.zeros(n, dtype=torch.long)
+    deg[8:16], deg[3] = 40, 400
+    deg[256:300] = 3
+    dst = torch.repeat_interleave(torch.arange(n), deg)
+    src = dst // bn * bn + torch.randint(0, bn, dst.shape, generator=g)
+    src[dst == 3] = 5
+    far = torch.rand(dst.shape, generator=g) < 0.05
+    src[far] = (src[far] + bn) % n
+    w = torch.rand(dst.shape, generator=g) + 0.5
+    w[torch.rand(dst.shape, generator=g) < 0.1] = 0.0
+    starts = torch.searchsorted(dst, torch.tensor([0, bn]))
+    ends = torch.searchsorted(dst, torch.tensor([bn, n]))
+    args = [a.to(cuda) for a in (src.int(), dst.int(), w, starts.int(),
+                                 ends.int())]
+    csr = edge_csr(args[0], args[1], n)
+    x = torch.randn(n, feat, device=cuda)
+    for transpose in (False, True):
+        _spmm_check(x, args, csr, bn, transpose)
 
 
 def test_kernel_autograd_and_counter(cuda):
@@ -199,12 +278,7 @@ def test_attention_counters_and_nonlocal_edges(cuda):
     plain version."""
     gb = _batch().to(cuda)
     bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
-    s_far = gb.senders.clone()
-    real = torch.nonzero(gb.edge_mask > 0)[:, 0]
-    pick = real[::17]
-    s_far[pick] = (s_far[pick] + bn) % gb.num_nodes
-    args = (s_far,) + _args(gb)[1:]
-    csr = edge_csr(s_far, gb.receivers, gb.num_nodes)
+    args, csr = _far_batch(gb, bn)
     qkve, c = _attn_inputs(gb, 8, 8, torch.float32, seed=1)
     f = ops.edge_softmax_attention_tiled
     before = (f.launches_fwd, f.launches_bwd)
@@ -218,6 +292,43 @@ def test_attention_counters_and_nonlocal_edges(cuda):
     (ref * c).sum().backward()
     for name, a, b in zip(("out", "dQ", "dK", "dV", "dE1"), got,
                           [ref] + [t.grad for t in qkve]):
+        torch.testing.assert_close(a, b, msg=name, **_grad_tol(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D,far,aligned", [
+    (8, 8, False, True), (8, 8, True, True), (8, 8, False, False),
+    (8, 10, False, True), (8, 10, True, True), (4, 4, False, True)])
+def test_attention_bwd_writes_every_de1_slot(cuda, dtype, H, D, far,
+                                             aligned):
+    """K3 allocates dE1 without zeroing it: every slot must hold the plain
+    version's value (zeros where no edge counts), whatever the memory held
+    before, in the vector layout (D = 8, 4) and the general one (D = 10, or
+    D = 8 with E1 off its alignment), on the batch and on the one with
+    non-tile-local edges."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    args, csr = _far_batch(gb, bn) if far else (_args(gb), batch_csr(gb))
+    qkve, g = _attn_inputs(gb, H, D, dtype, seed=H * D + far)
+    Q, K, V, E1 = (t.detach() for t in qkve)
+    if not aligned:  # the same values one element past an alignment
+        buf = torch.empty(E1.numel() + 1, dtype=dtype, device=cuda)
+        E1 = buf[1:].view(E1.shape).copy_(E1)
+    layout = attn_mod.bwd_variant(
+        H, D, aligned and E1.data_ptr() % (4 * E1.element_size()) == 0)
+    assert layout == int(D % 4 == 0 and aligned)
+    out, den = attn_mod._launch_fwd(Q, K, V, E1, args[0], args[2],
+                                    *args[3:], csr[0], bn)
+    ghat = g / (den[:, :, None] + 1e-6)
+    c = (out.float() * ghat).sum(-1)
+    torch.full(E1.shape, float("nan"), device=cuda)  # freed, left to dE1
+    got = attn_mod._launch_bwd(Q, K, V, E1, ghat, c, *args, csr, bn)
+    want = attn_mod.edge_attention_bwd_plain(Q, K, V, E1, ghat, c, *args,
+                                             bn)
+    torch.cuda.synchronize()
+    counted = spmm_mod._tile_mask(*args[:2], *args[3:], bn) & (args[2] != 0)
+    assert bool((got[3][~counted] == 0).all())
+    for name, a, b in zip(("dQ", "dK", "dV", "dE1"), got, want):
         torch.testing.assert_close(a, b, msg=name, **_grad_tol(b))
 
 

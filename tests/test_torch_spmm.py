@@ -7,6 +7,7 @@ version edge by edge: reduction-order noise only).  Edges that break tile
 locality, and edges outside every tile range, are dropped by both.
 """
 import importlib
+import re
 
 import numpy as np
 import jax
@@ -222,3 +223,59 @@ def test_spmm_tiled_skips_zero_weight_edges():
         assert torch.isfinite(out).all()
         assert out[:2, 0].tolist() == ([2.0, 3.0] if not transpose
                                        else [3.0, 2.0])
+
+
+# (num_feat, dtype, x 16-byte aligned, bn) -> (features per load, lanes per
+# row): each row width a path launches K1 with (GIN 16, 95, 1520; the
+# GatedGCN phi 1088; bench_ops 128), widths that take 32 and 64 lanes, a
+# GINConv override's 74 * 67 = 4958, rows off a 16-byte boundary, and tiles
+# too small for a warp's rows
+@pytest.mark.parametrize("feat,dtype,aligned,bn,want", [
+    (16, torch.float32, True, 256, (4, 4)),
+    (16, torch.bfloat16, True, 256, (8, 4)),
+    (95, torch.float32, True, 256, (1, 16)),
+    (95, torch.bfloat16, True, 256, (1, 16)),
+    (128, torch.float32, True, 256, (4, 16)),
+    (128, torch.bfloat16, True, 256, (8, 8)),
+    (256, torch.float32, True, 256, (4, 32)),
+    (512, torch.float32, True, 256, (4, 64)),
+    (1088, torch.float32, True, 256, (4, 128)),
+    (1520, torch.float32, True, 256, (4, 128)),
+    (1520, torch.bfloat16, True, 256, (8, 128)),
+    (4958, torch.float32, True, 256, (1, 128)),
+    (1520, torch.float32, False, 256, (1, 128)),
+    (16, torch.float32, False, 256, (1, 4)),
+    (16, torch.float32, True, 4, (4, 8)),
+    (16, torch.float32, True, 1, (4, 32)),
+])
+def test_kernel_variant_takes_whole_rows(feat, dtype, aligned, bn, want):
+    """The host picks K1's variant: 16-byte loads only where F and x allow
+    them, the fewest lanes per row (up to 4 warps) whose loads cover the
+    row in one pass, and only as many rows per warp as share a tile."""
+    vec, group = spmm_mod.kernel_variant(feat, dtype, aligned, bn)
+    assert (vec, group) == want
+    assert feat % vec == 0 and (group >= 32 or bn % (32 // group) == 0)
+    per_pass = group * spmm_mod._VECS_PER_EDGE[vec] * vec
+    assert group == spmm_mod._GROUPS[-1] or per_pass >= feat
+
+
+def test_kernel_variants_mirror_the_source():
+    """What the host picks is what the C entry takes: the vectors a lane
+    loads per edge, the load widths per type and the lanes per row."""
+    with open(nvcc_mod.source_path("spmm_tiled")) as f:
+        src = f.read()
+    one, wide = map(int, re.search(
+        r"vecs_per_edge\(\) \{ return V == 1 \? (\d+) : (\d+); \}",
+        src).groups())
+    assert spmm_mod._VECS_PER_EDGE == {1: one, 4: wide, 8: wide}
+    assert "vec == 8   ? launch_vec<__nv_bfloat16, 8>" in src
+    assert "vec == 4   ? launch_vec<float, 4>" in src
+    groups = {int(g) for g in re.findall(r"case (\d+): SPMM_TILED_ROWS", src)}
+    assert groups == set(spmm_mod._GROUPS)
+    for feat in (16, 95, 128, 1088, 1520, 4958):
+        for dtype in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                vec, group = spmm_mod.kernel_variant(feat, dtype, aligned,
+                                                     256)
+                assert group in groups
+                assert vec in ((1, 4) if dtype == torch.float32 else (1, 8))
