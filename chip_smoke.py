@@ -10,23 +10,25 @@ each so a stall shows where it happened:
 0. the card's name and power limit (nvidia-smi); build every kernel of the
    ported paths from the checkout's sources, one nvcc per source, all
    started together (nvcc seconds and the -Xptxas -v summary of every
-   kernel instance; every K1 and K3 instance must be named and must not
-   spill);
+   kernel instance; every K1, K2, K3 and K4 instance must be named and
+   must not spill);
 1. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
    and bf16, forward and transposed, at every row width a path runs it
    with, F = 16, 95, 128, 1088 and 1520, and at 4958; autograd; a batch
    with non-tile-local edges), K2/K3 (the fused edge-softmax attention
-   forward and backward; f32 and bf16 at D = 8, 10 and 7, K3's dE1 at
-   every slot, a batch with non-tile-local edges) and K4 (the fused
-   GatedGCN gate; f32 and bf16 at F = 68, 77 and 70, agg and e_new at every
-   slot, the padding slots included, the autograd path, a batch with
-   non-tile-local edges); CUDA-event times of each kernel, cold and warm
-   (K1 at each of its row widths, forward and transposed; K2-K4 also
-   without the batch's padding edges), of its plain version and, where one
-   exists, of one library call (a yardstick, never used by the port)
-   beside the bound the card's memory and arithmetic rates put on the same
-   work;
+   forward and backward; f32 and bf16 at D = 8, 10 and 7, both layouts,
+   K2's out and den at every row and K3's dE1 at every slot over NaN-filled
+   memory, a batch with non-tile-local edges) and K4 (the fused GatedGCN
+   gate; f32 and bf16 at F = 68, 77, 70 and 128 (two passes of a warp's
+   lanes), agg and e_new at every row and slot over NaN-filled memory, the
+   padding slots included, the autograd path, a batch with non-tile-local
+   edges); CUDA-event times of each kernel, cold and warm (K1 at each of
+   its row widths, forward and transposed; K2-K4 also without the batch's
+   padding edges), of its plain
+   version and, where one exists, of one library call (a yardstick, never
+   used by the port: torch.sparse.mm at each of K1's widths) beside the
+   bound the card's memory and arithmetic rates put on the same work;
 2. the GIN path: one full-width train step on the card against the same
    step on the CPU (the kernels' plain versions) from the same weights; the
    warm step's time on one fixed batch, f32 and bf16 in turns, with the
@@ -446,6 +448,7 @@ def main():
     from signnet_basisnet_tpu_torch.ops.spmm_tiled import (
         _launch, _tile_mask, edge_in_range, spmm_tiled, spmm_tiled_plain)
     from signnet_basisnet_tpu_torch.train_zinc import run
+    from signnet_basisnet_tpu_torch.utils import nan_filled_empty
     from signnet_basisnet_tpu_torch.training import (adam, build_steps,
                                                      load_config,
                                                      make_zinc_predict)
@@ -477,19 +480,23 @@ def main():
         record["nvcc_seconds"] = {k: v["seconds"]
                                   for k, v in _nvcc.build_info.items()}
         record["ptxas"] = instances
-        # K1 (types x vector widths x lanes per row x directions) and K3
-        # (types x layouts): every instance named, none spilling
-        redesigned = {k: v for k, v in instances.items()
-                      if k.startswith(("spmm_tiled_kernel<",
-                                       "attn_bwd_kernel<",
-                                       "attn_bwd_vec_kernel<"))}
-        n_k1 = sum(k.startswith("spmm_tiled_kernel<") for k in redesigned)
-        if n_k1 != 48 or len(redesigned) != 52:
-            raise AssertionError(f"expected 48 K1 and 4 K3 instances in the "
-                                 f"ptxas report, found {sorted(redesigned)}")
-        spilled = {k: v for k, v in redesigned.items() if v[1] or v[2]}
+        # K1 (types x vector widths x lanes per row x directions), K2 and
+        # K3 (types x layouts), K4 (types): every instance
+        # named, none spilling
+        prefixes = {"K1": ("spmm_tiled_kernel<",),
+                    "K2": ("attn_fwd_kernel<", "attn_fwd_vec_kernel<"),
+                    "K3": ("attn_bwd_kernel<", "attn_bwd_vec_kernel<"),
+                    "K4": ("gate_kernel<",)}
+        expected = {"K1": 48, "K2": 4, "K3": 4, "K4": 2}
+        found = {k: sorted(i for i in instances if i.startswith(p))
+                 for k, p in prefixes.items()}
+        if {k: len(v) for k, v in found.items()} != expected:
+            raise AssertionError(f"expected {expected} instances in the "
+                                 f"ptxas report, found {found}")
+        spilled = {i: instances[i] for v in found.values() for i in v
+                   if instances[i][1] or instances[i][2]}
         if spilled:
-            raise AssertionError(f"K1/K3 instances spill: {spilled}")
+            raise AssertionError(f"K1-K4 instances spill: {spilled}")
 
     # ---------------------------------------------------------------- 1
     with Phase("1 kernel vs plain"):
@@ -572,7 +579,7 @@ def main():
         # times in f32 at every F a path launches K1 with, forward and
         # transposed, cold (L2 flushed before each launch, as the main path
         # finds x) and warm; torch.sparse.mm on a CSR matrix of the counted
-        # edges as the yardstick at F = 1520 and 95.  The bound of this
+        # edges as the yardstick at each of them.  The bound of this
         # batch's work: x read only at the rows that counted edges reach
         # (forward: their sources; transposed: their destinations), the
         # output written at every row once, and the index arrays the kernel
@@ -609,13 +616,11 @@ def main():
                 t[f"{d}_bound_by"] = ("bytes" if t_bytes >= t_ops
                                       else "operations")
                 t[f"{d}_bytes"] = bytes_moved
-            if feat in (1520, 95):
-                lib = torch.sparse.mm(a_csr, x)
-                check(f"library torch.sparse.mm F={feat} vs plain "
-                      "(yardstick)", lib, spmm_tiled_plain(x, *args, bn),
-                      torch.float32)
-                t["library_ms"] = _cuda_time_ms(
-                    lambda: torch.sparse.mm(a_csr, x), flush=flush)
+            lib = torch.sparse.mm(a_csr, x)
+            check(f"library torch.sparse.mm F={feat} vs plain (yardstick)",
+                  lib, spmm_tiled_plain(x, *args, bn), torch.float32)
+            t["library_ms"] = _cuda_time_ms(
+                lambda: torch.sparse.mm(a_csr, x), flush=flush)
             if feat == 1520:
                 t["plain_ms"] = _cuda_time_ms(
                     lambda: spmm_tiled_plain(x, *args, bn), flush=flush)
@@ -629,8 +634,8 @@ def main():
                       f"MB), cold / bound "
                       f"{t[f'{d}_cold_ms'] / t[f'{d}_bound_ms']:.2f}"
                       for d in ("forward", "transposed"))
-                  + (f"; library_ms {t['library_ms'] * 1e3:.2f} us "
-                     "(torch.sparse.mm, CSR)" if "library_ms" in t else "")
+                  + f"; library_ms {t['library_ms'] * 1e3:.2f} us "
+                    "(torch.sparse.mm, CSR)"
                   + (f"; plain_ms {t['plain_ms'] * 1e3:.2f} us"
                      if "plain_ms" in t else ""), flush=True)
             k1_times[feat] = t
@@ -721,19 +726,26 @@ def main():
             qkve = attn_inputs(H, D, dtype)
             g = torch.randn(nb, H, D, device=dev, generator=gen)
             Q, K, V, E1 = (t.detach() for t in qkve)
-            out, den = attn._launch_fwd(Q, K, V, E1, edge_args[0],
-                                        edge_args[2], *edge_args[3:],
-                                        edge_csr_[0], bn)
+            # K2 allocates out and den without filling them and must write
+            # every row: each entry starts as NaN
+            with nan_filled_empty():
+                out, den = attn._launch_fwd(Q, K, V, E1, edge_args[0],
+                                            edge_args[2], *edge_args[3:],
+                                            edge_csr_[0], bn)
             attn_check("K2", f"K2 {tag} out", out,
                        plain(Q, K, V, E1, *edge_args, bn),
                        f32_tol if dtype == torch.float32 else bf16_tol)
+            attn_check("K2", f"K2 {tag} den", den,
+                       attn.edge_softmax_den_plain(Q, K, E1, *edge_args, bn),
+                       f32_tol)
             ghat = g / (den[:, :, None] + 1e-6)
             c = (out.float() * ghat).sum(-1)
             # K3 allocates dE1 without zeroing it and must write every
             # slot: leave NaNs in the memory the allocator hands it next
             torch.full(E1.shape, float("nan"), device=dev)
-            got = attn._launch_bwd(Q, K, V, E1, ghat, c, *edge_args,
-                                   edge_csr_, bn)
+            with nan_filled_empty():
+                got = attn._launch_bwd(Q, K, V, E1, ghat, c, *edge_args,
+                                       edge_csr_, bn)
             want = attn.edge_attention_bwd_plain(Q, K, V, E1, ghat, c,
                                                  *edge_args, bn)
             for nm, a, b in zip(names, got, want):
@@ -750,12 +762,17 @@ def main():
             for dtype in (torch.float32, torch.bfloat16):
                 layout = ("vector" if attn.bwd_variant(H, D, True)
                           else "general")
-                attn_compare(f"H={H} D={D} {str(dtype)[6:]} (K3 {layout})",
+                attn_compare(f"H={H} D={D} {str(dtype)[6:]} (K2/K3 {layout})",
                              args, csr, H, D, dtype,
                              autograd=dtype == torch.float32)
         # the batch with non-tile-local edges of phase 1: dropped by both
-        attn_compare("non-local edges H=8 D=8 float32", far_args, far_csr,
-                     8, 8, torch.float32, autograd=True)
+        attn_compare("non-local edges H=8 D=8 float32 (K2/K3 vector)",
+                     far_args, far_csr, 8, 8, torch.float32, autograd=True)
+        # the general layout on that batch too, in both types
+        for dtype in (torch.float32, torch.bfloat16):
+            attn_compare(f"non-local edges H=8 D=10 {str(dtype)[6:]} "
+                         "(K2/K3 general)", far_args, far_csr, 8, 10, dtype,
+                         autograd=False)
 
         # times at the slice's shapes: H = 8 heads of D = 8, f32
         H, D = 8, 8
@@ -778,7 +795,7 @@ def main():
                 "K3": _cuda_time_ms(lambda: attn._launch_bwd(*bwd_args))}
         print(f"  warm (CUDA events, L2 not flushed): K2 "
               f"{warm['K2'] * 1e3:.2f} us, K3 {warm['K3'] * 1e3:.2f} us "
-              f"(K3 layout: {'vector' if attn.bwd_variant(H, D, True) else 'general'})",
+              f"(K2/K3 layout: {'vector' if attn.bwd_variant(H, D, True) else 'general'})",
               flush=True)
         record.update(attention_warm_ms=warm)
         # the same launches on the batch without its padding edges (weight
@@ -797,9 +814,13 @@ def main():
         k3_cut_ms = _cuda_time_ms(lambda: attn._launch_bwd(
             Q, K, V, cut[3], ghat, c, *cut[:3], *lims, csr_cut, bn),
             flush=flush)
+        k2_cut_warm_ms = _cuda_time_ms(lambda: attn._launch_fwd(
+            Q, K, V, cut[3], cut[0], cut[2], *lims, csr_cut[0], bn))
         print(f"  without the {eb - n_real} padding edges: K2 "
-              f"{k2_cut_ms:.4f} ms, K3 {k3_cut_ms:.4f} ms", flush=True)
+              f"{k2_cut_ms:.4f} ms cold, {k2_cut_warm_ms:.4f} ms warm; K3 "
+              f"{k3_cut_ms:.4f} ms cold", flush=True)
         record.update(attention_no_padding_ms={"K2": k2_cut_ms,
+                                               "K2_warm": k2_cut_warm_ms,
                                                "K3": k3_cut_ms})
         k2_plain_ms = _cuda_time_ms(lambda: plain(Q, K, V, E1, *args, bn),
                                     flush=flush)
@@ -849,7 +870,9 @@ def main():
                   f"{dst_rows} destination and {src_rows} source rows); "
                   f"kernel / bound {k_ms / b['bound_ms']:.2f}", flush=True)
         prof = {kname: _profiled_kernel_us(fn, kn) for kname, fn, kn in (
-            ("K2", lambda: attn._launch_fwd(*fwd_args), "attn_fwd_kernel"),
+            # "attn_fwd" names both K2 layouts (attn_fwd_kernel and
+            # attn_fwd_vec_kernel)
+            ("K2", lambda: attn._launch_fwd(*fwd_args), "attn_fwd"),
             # "attn_bwd" names both K3 layouts (attn_bwd_kernel and
             # attn_bwd_vec_kernel)
             ("K3", lambda: attn._launch_bwd(*bwd_args), "attn_bwd"))}
@@ -890,7 +913,10 @@ def main():
 
         def gate_compare(tag, edge_args, edge_csr_, F, dtype):
             feats = gate_inputs(F, dtype)
-            got = gate_mod._launch(*feats, *edge_args, edge_csr_[0], bn)
+            # K4 allocates agg and e_new without filling them and must
+            # write every row and slot: each entry starts as NaN
+            with nan_filled_empty():
+                got = gate_mod._launch(*feats, *edge_args, edge_csr_[0], bn)
             want = gate_plain(*feats, *edge_args, bn)
             for nm, a, b in zip(("agg", "e_new"), got, want):
                 if a.dtype != dtype:
@@ -901,7 +927,9 @@ def main():
 
         n_real = int((gb.edge_mask != 0).sum())
         assert bool((gb.edge_mask[:n_real] != 0).all())
-        for F in (68, 77, 70):
+        # F = 68, 77, 70 in one pass of the warp's lanes (96 features);
+        # 128 in two
+        for F in (68, 77, 70, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 feats, (agg, e_new) = gate_compare(
                     f"F={F} {str(dtype)[6:]}", args, csr, F, dtype)
@@ -932,12 +960,13 @@ def main():
                        grad_tol)
         # the batch with non-tile-local edges of phase 1: counted fully by
         # K4 and the plain version, as by the reference
-        feats, got = gate_compare("non-local edges F=68 float32", far_args,
-                                  far_csr, 68, torch.float32)
-        ref = gate_mod.gatedgcn_gate_reference(*feats, *far_args[:3], nb)
-        for nm, a, b in zip(("agg", "e_new"), got, ref):
-            attn_check("K4", f"K4 non-local edges {nm} vs reference", a, b,
-                       f32_tol)
+        for F in (68, 128):  # one pass and two
+            feats, got = gate_compare(f"non-local edges F={F} float32",
+                                      far_args, far_csr, F, torch.float32)
+            ref = gate_mod.gatedgcn_gate_reference(*feats, *far_args[:3], nb)
+            for nm, a, b in zip(("agg", "e_new"), got, ref):
+                attn_check("K4", f"K4 non-local edges F={F} {nm} vs "
+                           "reference", a, b, f32_tol)
 
         # times at the slice's shapes: F = 68, f32, with and without the
         # batch's padding edges (weight 0, all on its last node)
@@ -947,13 +976,15 @@ def main():
         k4_args = (*feats, *args, csr[0], bn)
         k4_ms = _cuda_time_ms(lambda: gate_mod._launch(*k4_args),
                               flush=flush)
+        k4_warm_ms = _cuda_time_ms(lambda: gate_mod._launch(*k4_args))
         cut = [a[:n_real].contiguous() for a in (gb.senders, gb.receivers,
                                                  gb.edge_mask, feats[3])]
         lims = [torch.clamp(a, max=n_real) for a in args[3:]]
         csr_cut = edge_csr(cut[0], cut[1], nb)
-        k4_cut_ms = _cuda_time_ms(lambda: gate_mod._launch(
-            *feats[:3], cut[3], *cut[:3], *lims, csr_cut[0], bn),
-            flush=flush)
+        k4_cut = lambda: gate_mod._launch(*feats[:3], cut[3], *cut[:3],
+                                          *lims, csr_cut[0], bn)
+        k4_cut_ms = _cuda_time_ms(k4_cut, flush=flush)
+        k4_cut_warm_ms = _cuda_time_ms(k4_cut)
         k4_plain_ms = _cuda_time_ms(lambda: gate_plain(*feats, *args, bn),
                                     flush=flush)
         # the backward every train step runs after K4, in plain torch
@@ -988,8 +1019,10 @@ def main():
                         in_range_slots=n_in, counted_edges=n_counted)
         prof_us = _profiled_kernel_us(lambda: gate_mod._launch(*k4_args),
                                       "gate_kernel")
-        print(f"K4 F=68 f32: kernel_ms {k4_ms:.4f} (without the "
-              f"{eb - n_real} padding edges {k4_cut_ms:.4f}), plain_ms "
+        print(f"K4 F=68 f32: kernel_ms "
+              f"{k4_ms:.4f} cold, {k4_warm_ms:.4f} warm (without the "
+              f"{eb - n_real} padding edges {k4_cut_ms:.4f} cold, "
+              f"{k4_cut_warm_ms:.4f} warm), plain_ms "
               f"{k4_plain_ms:.4f}, bound {k4_bound['bound_ms'] * 1e3:.2f} us "
               f"by {k4_bound['bound_by']} ({k4_bytes / 1e6:.2f} MB, "
               f"{k4_ops / 1e6:.2f} MFLOP; {n_in} in-range slots, "
@@ -997,7 +1030,9 @@ def main():
               f"{k4_ms / k4_bound['bound_ms']:.2f}; profiler (warm L2) "
               f"{prof_us} us per launch; its plain backward "
               f"(gatedgcn_gate_bwd_plain) {k4_bwd_ms:.4f} ms", flush=True)
-        record.update(gate_no_padding_ms=k4_cut_ms, gate_bound=k4_bound,
+        record.update(gate_no_padding_ms=k4_cut_ms, gate_warm_ms=k4_warm_ms,
+                      gate_no_padding_warm_ms=k4_cut_warm_ms,
+                      gate_bound=k4_bound,
                       gate_profiler_us_warm=prof_us, gate_bwd_ms=k4_bwd_ms)
         kern4 = dict(name="gatedgcn_gate_fwd", route="cuda",
                      source="signnet_basisnet_tpu_torch/ops/csrc/"
@@ -1301,8 +1336,7 @@ def main():
                   f"{[round(t, 2) for t in v]}", flush=True)
             record[f"transformer_warm_{name}_step_ms"] = v
         for name, step in (("f32", t_step), ("bf16", bf16_step)):
-            prof = _profile_steps(step, t_batch, ["attn_fwd_kernel",
-                                                  "attn_bwd"])
+            prof = _profile_steps(step, t_batch, ["attn_fwd", "attn_bwd"])
             print(f"  profiler, Transformer {name}: {prof}", flush=True)
             record[f"transformer_warm_{name}_step_profile"] = prof
         del bf16_model, bf16_step, t_step, t_batch

@@ -39,17 +39,36 @@
 // to 128 lanes (a workaround for the MXU); these kernels walk each row's
 // edges through CSR pointers instead.
 //
-// K2 (forward), design:
-// - one warp per row, 4 rows per 128-thread block; lanes take the H*D
-//   features at stride 32, so a row or an edge's E1 is one coalesced read;
-// - each warp keeps its row's vectors and per-edge products in shared
-//   memory: a head's score is summed over its D features by one lane per
-//   head, which takes any H and D (the shipped configs have D = 7, 8, 10,
-//   so heads need not line up with lanes);
-// - the warp loads 32 of its row's edges at once, a ballot marks those that
-//   count (padding edges, weight 0, all sit on the batch's last node and are
-//   skipped 32 at a time), and the counted ones are taken one by one.
-//
+// K2 (forward), design.  Each row's walk is a chain of dependent loads
+// (dst_ptr and the tile range, then the senders and weights, then K, V and
+// E1 at the counted edges), and at about 2 edges a row that chain, not the
+// bytes, sets the time.  So the walk keeps as many loads in flight as it
+// can and takes nothing in turn that it could take at once:
+// - blocks take rows from the last one down, so the padding row (the
+//   batch's 1172 weight-0 edges, all on its last node) starts first;
+// - index loads are unconditional: a lane past the segment's end reloads
+//   its last candidate and drops it;
+// - the vector layout (D a multiple of 4 and H*D/4 dividing 32; the
+//   shipped Transformer's H = D = 8): a lane group of H*D/4 lanes holds a
+//   row, 4 features a lane in registers, a head in D/4 adjacent lanes.  The
+//   row's Qs (Q * inv, rounded to the input type) is loaded with the CSR
+//   pointers; a trip loads 256 candidates (all index loads in flight) and
+//   lists the counted ones in shared memory; the warp's 32/(H*D/4) lane
+//   groups then take that many counted edges at once, each edge's K, V and
+//   E1 loads in flight together, its score a shuffle sum over the head's lanes.
+//   Each group keeps its share of sum_e s_e V and of den in registers, and
+//   the groups' shares are added by shuffles in a fixed order at the end:
+//   no shared-memory phase per edge;
+// - the general layout (D = 7, 10): one warp per row, lanes over the H*D
+//   features at stride 32, one lane per head summing the products in shared
+//   memory (any H and D); a ballot over 32 candidates at a time keeps the
+//   counted edges, taken one at a time, each edge's V loads in flight with
+//   its K and E1 loads, before its score is known.  (Taking two edges at a
+//   time doubled the warp's shared memory and measured slower cold at
+//   D = 7 in bf16.)
+// - every row writes out and den once (den 0 and out 0 where no edge
+//   counts), so the caller allocates both without filling them.
+
 // K3 (backward), one launch with three kinds of warp:
 // - destination warps (dQ and the counted edges' dE1) and source warps (dK
 //   and dV, walking the src-sorted permutation the transposed SpMM walks)
@@ -103,9 +122,14 @@ __device__ __forceinline__ float clamped_exp(float score) {
   return expf(fminf(fmaxf(score, -5.f), 5.f));
 }
 
-// one warp per destination row n: out[n] and den[n]
+// General layout (any H and D): one warp per destination row n, out[n]
+// and den[n]; blocks take rows from the last one down (the padding row's
+// walk starts first).  A ballot over 32 candidates (unconditional index
+// loads) keeps the counted edges; per edge, its K, E1 and V loads are in
+// flight together, the products go to shared memory and one lane per head
+// sums them.  No __launch_bounds__, as K3.
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarps) attn_fwd_kernel(
+__global__ void attn_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ e1, T* __restrict__ out, float* __restrict__ den,
     const int* __restrict__ senders, const float* __restrict__ w,
@@ -114,12 +138,13 @@ __global__ void __launch_bounds__(32 * kWarps) attn_fwd_kernel(
   extern __shared__ float smem[];
   const int F = H * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qs = smem + warp * (3 * F + 2 * H);  // the row's Qs
+  float* qs = smem + warp * (4 * F + 2 * H);  // the row's Qs
   float* p = qs + F;                          // K * Qs * E1 of one edge
-  float* acc = p + F;                         // sum_e s_e V[src_e]
+  float* vs = p + F;                          // V of that edge
+  float* acc = vs + F;                        // sum_e s_e V[src_e]
   float* sh = acc + F;                        // s_e per head
   float* dh = sh + H;                         // sum_e s_e per head
-  const int n = blockIdx.x * kWarps + warp;
+  const int n = (gridDim.x - 1 - blockIdx.x) * kWarps + warp;
   if (n >= num_nodes) return;  // whole warps leave together
   const int t = n / bn, n_lo = t * bn;
   const int j0 = max(__ldg(dst_ptr + n), __ldg(starts + t));
@@ -132,26 +157,23 @@ __global__ void __launch_bounds__(32 * kWarps) attn_fwd_kernel(
   __syncwarp();
 
   for (int jb = j0; jb < j1; jb += 32) {
-    const int j = jb + lane;
-    int src = 0;
-    float we = 0.f;
-    bool ok = false;
-    if (j < j1) {
-      src = __ldg(senders + j);
-      we = __ldg(w + j);
-      ok = we != 0.f && src >= n_lo && src < n_lo + bn;
-    }
+    const int j = min(jb + lane, j1 - 1);  // past the end, the last one again
+    const int src = __ldg(senders + j);
+    const float we = __ldg(w + j);
+    const bool ok = jb + lane < j1 && we != 0.f && (unsigned)(src - n_lo) < (unsigned)bn;
     unsigned bits = __ballot_sync(kAll, ok);
-    while (bits) {
+    while (bits) {  // the same in every lane
       const int b = __ffs(bits) - 1;
       bits &= bits - 1;
       const int o = __shfl_sync(kAll, src, b);
       const float wo = __shfl_sync(kAll, we, b);
-      const size_t e = (size_t)(jb + b);
       const T* kr = k + (size_t)o * F;
       const T* vr = v + (size_t)o * F;
-      const T* er = e1 + e * F;
-      for (int f = lane; f < F; f += 32) p[f] = to_f32(kr[f]) * qs[f] * to_f32(er[f]);
+      const T* er = e1 + (size_t)(jb + b) * F;
+      for (int f = lane; f < F; f += 32) {  // V's loads in flight with K's and E1's
+        p[f] = to_f32(kr[f]) * qs[f] * to_f32(er[f]);
+        vs[f] = to_f32(vr[f]);
+      }
       __syncwarp();
       for (int h = lane; h < H; h += 32) {
         float score = 0.f;
@@ -161,7 +183,7 @@ __global__ void __launch_bounds__(32 * kWarps) attn_fwd_kernel(
         dh[h] += s;
       }
       __syncwarp();
-      for (int f = lane; f < F; f += 32) acc[f] += sh[f / D] * to_f32(vr[f]);
+      for (int f = lane; f < F; f += 32) acc[f] += sh[f / D] * vs[f];
     }
   }
   __syncwarp();
@@ -172,7 +194,7 @@ __global__ void __launch_bounds__(32 * kWarps) attn_fwd_kernel(
 
 // ---- K3, the backward ------------------------------------------------------
 
-constexpr int kBwdCand = 8;  // candidate edges per lane per trip (vector kernel)
+constexpr int kCand = 8;  // candidate edges per lane per trip (vector kernels)
 
 __device__ __forceinline__ unsigned lanes_below(int m) {
   return m <= 0 ? 0u : m >= 32 ? kAll : (1u << m) - 1u;
@@ -484,11 +506,11 @@ __device__ __forceinline__ float4 group_sum(float4 a, int lpr) {
 }
 
 // A warp's list of counted edges, filled from one trip of candidates (at
-// most 32 * kBwdCand): the edge slot, the other endpoint and the weight.
+// most 32 * kCand): the edge slot, the other endpoint and the weight.
 struct EdgeList {
-  int e[32 * kBwdCand];
-  int node[32 * kBwdCand];
-  float w[32 * kBwdCand];
+  int e[32 * kCand];
+  int node[32 * kCand];
+  float w[32 * kCand];
 };
 
 // appends the lanes whose `ok` is set, in lane order, after `count` (all 32
@@ -527,18 +549,18 @@ __device__ __forceinline__ void bwd_dst_row_vec(
   const float cn = __ldg(c + n * H + f / D);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int jb = p0; jb < p1; jb += 32 * kBwdCand) {
-    int src[kBwdCand];
-    float we[kBwdCand];
+  for (int jb = p0; jb < p1; jb += 32 * kCand) {
+    int src[kCand];
+    float we[kCand];
 #pragma unroll
-    for (int i = 0; i < kBwdCand; ++i) {  // past the end, the last one again
+    for (int i = 0; i < kCand; ++i) {  // past the end, the last one again
       const int j = min(jb + 32 * i + lane, p1 - 1);
       src[i] = __ldg(senders + j);
       we[i] = __ldg(w + j);
     }
     int count = 0;
 #pragma unroll
-    for (int i = 0; i < kBwdCand; ++i) {
+    for (int i = 0; i < kCand; ++i) {
       const int j = jb + 32 * i + lane;
       const bool ok = j < p1 && we[i] != 0.f && (unsigned)(src[i] - n_lo) < (unsigned)bn;
       unsigned bits;
@@ -595,20 +617,20 @@ __device__ __forceinline__ void bwd_src_row_vec(
   const float4 kk = load4(k + row), vv = load4(v + row);
   float4 adk = make_float4(0.f, 0.f, 0.f, 0.f), adv = adk;
 
-  for (int jb = p0; jb < p1; jb += 32 * kBwdCand) {
-    int eid[kBwdCand], dst[kBwdCand];
-    float we[kBwdCand];
+  for (int jb = p0; jb < p1; jb += 32 * kCand) {
+    int eid[kCand], dst[kCand];
+    float we[kCand];
 #pragma unroll
-    for (int i = 0; i < kBwdCand; ++i)  // past the end, the last one again
+    for (int i = 0; i < kCand; ++i)  // past the end, the last one again
       eid[i] = __ldg(src_order + min(jb + 32 * i + lane, p1 - 1));
 #pragma unroll
-    for (int i = 0; i < kBwdCand; ++i) {
+    for (int i = 0; i < kCand; ++i) {
       dst[i] = __ldg(receivers + eid[i]);
       we[i] = __ldg(w + eid[i]);
     }
     int count = 0;
 #pragma unroll
-    for (int i = 0; i < kBwdCand; ++i) {
+    for (int i = 0; i < kCand; ++i) {
       // the edge must lie in its destination tile (= m's tile) and its range
       const bool ok = jb + 32 * i + lane < p1 && we[i] != 0.f &&
                       (unsigned)(dst[i] - m_lo) < (unsigned)bn && eid[i] >= e_lo &&
@@ -686,6 +708,95 @@ __global__ void attn_bwd_vec_kernel(
   }
 }
 
+// ---- K2, the vector layout --------------------------------------------------
+
+__device__ __forceinline__ void store4(float* p, float4 a) {
+  *reinterpret_cast<float4*>(p) = a;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 a) {
+  uint2 u;
+  u.x = (unsigned)__bfloat16_as_ushort(__float2bfloat16(a.x)) |
+        ((unsigned)__bfloat16_as_ushort(__float2bfloat16(a.y)) << 16);
+  u.y = (unsigned)__bfloat16_as_ushort(__float2bfloat16(a.z)) |
+        ((unsigned)__bfloat16_as_ushort(__float2bfloat16(a.w)) << 16);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// One warp per destination row n, from the last row down: out[n] and
+// den[n].  Lane group `sub` of lpr = H*D/4 lanes takes counted edges sub,
+// sub + groups, ... of each trip's list in order; the groups' sums are then
+// added by shuffles, so the order is fixed.  No __launch_bounds__, as K3.
+template <typename T>
+__global__ void attn_fwd_vec_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ e1, T* __restrict__ out, float* __restrict__ den,
+    const int* __restrict__ senders, const float* __restrict__ w,
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ dst_ptr, int num_nodes, int H, int D, int bn, float inv) {
+  __shared__ EdgeList lists[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = (gridDim.x - 1 - blockIdx.x) * kWarps + warp;
+  if (n >= num_nodes) return;  // whole warps leave together
+  EdgeList& list = lists[warp];
+  const int F = H * D, lpr = F / 4, lph = D / 4, groups = 32 / lpr;
+  const int sub = lane / lpr, f = 4 * (lane % lpr);
+  const int t = n / bn, n_lo = t * bn;
+  const size_t row = (size_t)n * F + f;  // this lane's features of row n
+  // every load that needs no index first, all in flight together
+  const int e_lo = __ldg(starts + t), e_hi = __ldg(ends + t);
+  const int p0 = max(__ldg(dst_ptr + n), e_lo), p1 = min(__ldg(dst_ptr + n + 1), e_hi);
+  const float4 qs = scaled4<T>(load4(q + row), inv);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float dsum = 0.f;  // this group's share of den for the lane's head
+
+  for (int jb = p0; jb < p1; jb += 32 * kCand) {
+    int src[kCand];
+    float we[kCand];
+#pragma unroll
+    for (int i = 0; i < kCand; ++i) {  // past the end, the last one again
+      const int j = min(jb + 32 * i + lane, p1 - 1);
+      src[i] = __ldg(senders + j);
+      we[i] = __ldg(w + j);
+    }
+    int count = 0;
+#pragma unroll
+    for (int i = 0; i < kCand; ++i) {
+      const int j = jb + 32 * i + lane;
+      const bool ok = j < p1 && we[i] != 0.f && (unsigned)(src[i] - n_lo) < (unsigned)bn;
+      unsigned bits;
+      count = append_counted(list, count, ok, j, src[i], we[i], lane, bits);
+    }
+    __syncwarp();
+    // the counted edges, `groups` at a time, one per lane group
+    for (int m0 = 0; m0 < count; m0 += groups) {
+      const int m = m0 + sub;
+      const bool has = m < count;
+      float4 kf = make_float4(0.f, 0.f, 0.f, 0.f), vf = kf, ef = kf;
+      float wo = 0.f;
+      if (has) {
+        const size_t o = (size_t)list.node[m] * F + f;
+        wo = list.w[m];
+        kf = load4(k + o);
+        vf = load4(v + o);
+        ef = load4(e1 + (size_t)list.e[m] * F + f);
+      }
+      const float score = head_sum(sum4(mul4(mul4(kf, qs), ef)), lph);
+      const float s = clamped_exp(score) * wo;  // 0 for a group without an edge
+      add4(acc, scale4(vf, s));
+      dsum += s;
+    }
+    __syncwarp();  // the list is refilled by the next trip
+  }
+  acc = group_sum(acc, lpr);
+  for (int o = lpr; o < 32; o <<= 1) dsum += __shfl_xor_sync(kAll, dsum, o);
+  if (sub == 0) {
+    const float d = dsum + 1e-6f;
+    store4(out + row, make_float4(acc.x / d, acc.y / d, acc.z / d, acc.w / d));
+    if (f % D == 0) den[(size_t)n * H + f / D] = dsum;
+  }
+}
+
 template <typename Kernel>
 cudaError_t fit_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -697,12 +808,19 @@ template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* e1,
                        void* out, void* den, const void* senders, const void* w,
                        const void* starts, const void* ends, const void* dst_ptr,
-                       int num_nodes, int H, int D, int bn, float inv,
+                       int num_nodes, int H, int D, int bn, float inv, int vec,
                        cudaStream_t stream) {
-  const size_t bytes = (size_t)kWarps * (3 * H * D + 2 * H) * sizeof(float);
+  const dim3 grid((num_nodes + kWarps - 1) / kWarps);
+  if (vec) {
+    attn_fwd_vec_kernel<T><<<grid, 32 * kWarps, 0, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)e1, (T*)out, (float*)den,
+        (const int*)senders, (const float*)w, (const int*)starts, (const int*)ends,
+        (const int*)dst_ptr, num_nodes, H, D, bn, inv);
+    return cudaGetLastError();
+  }
+  const size_t bytes = (size_t)kWarps * (4 * H * D + 2 * H) * sizeof(float);
   cudaError_t err = fit_smem(attn_fwd_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((num_nodes + kWarps - 1) / kWarps);
   attn_fwd_kernel<T><<<grid, 32 * kWarps, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)e1, (T*)out, (float*)den,
       (const int*)senders, (const float*)w, (const int*)starts, (const int*)ends,
@@ -746,22 +864,27 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 // K2.  q, k, v: [num_nodes, H * D], e1: [E, H * D], out: [num_nodes, H * D],
 // all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); den: [num_nodes, H] f32;
-// senders: [E] int32, dst-sorted; w: [E] f32 edge weights; starts, ends: [T]
-// int32 tile edge ranges; dst_ptr: [num_nodes + 1] int32 CSR pointers over
-// the dst-sorted edges; inv: 1/sqrt(D) rounded to the input type.
+// out and den written at every row; senders: [E] int32, dst-sorted; w: [E]
+// f32 edge weights; starts, ends: [T] int32 tile edge ranges; dst_ptr:
+// [num_nodes + 1] int32 CSR pointers over the dst-sorted edges; inv:
+// 1/sqrt(D) rounded to the input type.  vec = 1 takes the vector layout
+// (head_dim a multiple of 4, H * D / 4 dividing 32, q, k, v, e1 and out
+// aligned to 4 elements), vec = 0 the general one.
 extern "C" int edge_attention_fwd(const void* q, const void* k, const void* v,
                                   const void* e1, void* out, void* den, const void* senders,
                                   const void* w, const void* starts, const void* ends,
                                   const void* dst_ptr, int num_nodes, int num_heads,
-                                  int head_dim, int bn, int is_bf16, float inv,
+                                  int head_dim, int bn, int is_bf16, int vec, float inv,
                                   void* stream) {
   if (num_nodes <= 0 || num_heads <= 0 || head_dim <= 0) return (int)cudaGetLastError();
+  const int lpr = num_heads * head_dim / 4;
+  if (vec && (head_dim % 4 || lpr > 32 || 32 % lpr)) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       is_bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, e1, out, den, senders, w, starts, ends,
                                           dst_ptr, num_nodes, num_heads, head_dim, bn, inv,
-                                          (cudaStream_t)stream)
+                                          vec, (cudaStream_t)stream)
               : launch_fwd<float>(q, k, v, e1, out, den, senders, w, starts, ends, dst_ptr,
-                                  num_nodes, num_heads, head_dim, bn, inv,
+                                  num_nodes, num_heads, head_dim, bn, inv, vec,
                                   (cudaStream_t)stream);
   return (int)err;
 }

@@ -15,6 +15,8 @@ the edge modulation E1 [E, H, D]; per destination node n and head h:
   range [starts[t], ends[t]) with both endpoints in the tile, and edges of
   weight 0 (a batch's padding edges) are skipped.  Its gradients come from
   autograd.  It is the only path for CPU tensors.
+- `edge_softmax_den_plain` is K2's second output, the per-head
+  denominator den [N, H] f32, in plain torch.
 - `edge_attention_bwd_plain` is K3's function as launched (gradients from
   ghat and c) in plain torch: the tests' and the smoke run's direct
   reference for K3.
@@ -26,10 +28,11 @@ the edge modulation E1 [E, H, D]; per destination node n and head h:
   c = sum_d out * ghat in plain torch, as the JAX glue `_attn_bwd` does, then
   runs K3 (one launch, two passes) for dQ, dK, dV and dE1.  K3 writes every
   dE1 slot (zeros where no edge counts), so its output is allocated, not
-  zero-filled.  `bwd_variant` picks K3's layout from the shape: a row in
-  registers, D/4 lanes per head (D a multiple of 4, H*D/4 dividing 32: the
-  shipped H = D = 8), or the general one (D = 7, 10).  On a CUDA tensor it
-  launches or raises; on CPU tensors it runs the plain version.
+  zero-filled; K2 writes out and den at every row, so neither is filled
+  either.  `bwd_variant` picks the layout of both kernels from the shape: a
+  row in registers, D/4 lanes per head (D a multiple of 4, H*D/4 dividing
+  32: the shipped H = D = 8), or the general one (D = 7, 10).  On a CUDA
+  tensor it launches or raises; on CPU tensors it runs the plain version.
 
 Q is pre-scaled by 1/sqrt(D) in its own type (the scale itself rounded to
 that type), as the JAX wrapper scales it before its kernel, so in bf16 the
@@ -54,8 +57,9 @@ from . import _nvcc
 from .spmm_tiled import _tile_mask
 
 # edge_attention_fwd(q, k, v, e1, out, den, senders, w, starts, ends, dst_ptr,
-#                    num_nodes, num_heads, head_dim, bn, is_bf16, inv, stream)
-FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+#                    num_nodes, num_heads, head_dim, bn, is_bf16, vec, inv,
+#                    stream)
+FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p])
 # edge_attention_bwd(q, k, v, e1, ghat, c, dq, dk, dv, de1, senders,
 #                    receivers, w, starts, ends, dst_ptr, src_order, src_ptr,
@@ -113,6 +117,23 @@ def edge_softmax_attention_plain(Q, K, V, E1, senders, receivers, edge_mask,
         Q.shape[0])
 
 
+def edge_softmax_den_plain(Q, K, E1, senders, receivers, edge_mask, starts,
+                           ends, bn: int):
+    """K2's second output in plain torch: den [N, H] f32, the sum over the
+    edges that count of exp(clamp(score, -5, 5)) * w, from Q scaled as K2
+    scales it."""
+    keep = _tile_mask(senders, receivers, starts, ends, bn) & (edge_mask != 0)
+    idx = torch.nonzero(keep)[:, 0]
+    s, r = senders.long()[idx], receivers.long()[idx]
+    f32 = torch.float32
+    inv = torch.tensor(_inv_sqrt(Q.shape[2], Q.dtype), dtype=Q.dtype,
+                       device=Q.device)
+    score = (K.to(f32)[s] * (Q * inv).to(f32)[r] * E1.to(f32)[idx]).sum(-1)
+    ex = torch.exp(torch.clamp(score, -5.0, 5.0)) * edge_mask.to(f32)[idx][:, None]
+    return torch.zeros(Q.shape[:2], dtype=f32, device=Q.device).index_add_(
+        0, r, ex)
+
+
 def edge_attention_bwd_plain(Q, K, V, E1, ghat, c, senders, receivers,
                              edge_mask, starts, ends, bn: int):
     """The plain-torch version of K3 as launched: (dQ, dK, dV, dE1) in f32
@@ -146,10 +167,10 @@ def edge_attention_bwd_plain(Q, K, V, E1, ghat, c, senders, receivers,
 
 
 def bwd_variant(H: int, D: int, aligned: bool) -> int:
-    """K3's layout: 1, the vector one (a row's H*D features in H*D/4 lanes,
-    4 a lane, D/4 lanes a head), where D is a multiple of 4, H*D/4 divides
-    32 and the feature rows are `aligned` to 4 elements; else 0, the
-    general one."""
+    """The layout of K3 and of K2 (both C entries take the same condition):
+    1, the vector one (a row's H*D features in H*D/4 lanes, 4 a lane, D/4
+    lanes a head), where D is a multiple of 4, H*D/4 divides 32 and the
+    feature rows are `aligned` to 4 elements; else 0, the general one."""
     lanes = H * D // 4
     return int(D % 4 == 0 and 0 < lanes <= 32 and 32 % lanes == 0
                and aligned)
@@ -188,14 +209,16 @@ def _launch_fwd(Q, K, V, E1, senders, w, starts, ends, dst_ptr, bn: int):
     w = w.to(torch.float32).contiguous()
     N, H, D = Q.shape
     lib = build()
-    out = torch.empty_like(Q)
+    out = torch.empty_like(Q)  # K2 writes every row of out and den
     den = torch.empty((N, H), dtype=torch.float32, device=Q.device)
+    row_bytes = 4 * Q.element_size()
+    aligned = all(t.data_ptr() % row_bytes == 0 for t in (Q, K, V, E1, out))
     stream = torch.cuda.current_stream(Q.device).cuda_stream
     err = lib.edge_attention_fwd(
         *map(_addr, (Q, K, V, E1, out, den, senders, w, starts, ends,
                      dst_ptr)),
-        N, H, D, bn, int(Q.dtype == torch.bfloat16), _inv_sqrt(D, Q.dtype),
-        stream)
+        N, H, D, bn, int(Q.dtype == torch.bfloat16),
+        bwd_variant(H, D, aligned), _inv_sqrt(D, Q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"edge attention forward kernel launch failed: "
                            f"CUDA error {err}")

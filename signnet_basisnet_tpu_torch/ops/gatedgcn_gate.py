@@ -137,7 +137,7 @@ def _launch(Bh, Dh, Eh, Ce, senders, receivers, w, starts, ends, dst_ptr,
                          "num_nodes + 1")
     w = w.to(torch.float32).contiguous()
     lib = build()
-    agg = torch.empty_like(Bh)
+    agg = torch.empty_like(Bh)  # K4 writes every row and slot
     e_new = torch.empty_like(Ce)
     stream = torch.cuda.current_stream(Bh.device).cuda_stream
     err = lib.gatedgcn_gate_fwd(

@@ -1,1 +1,2 @@
+from .checks import nan_filled_empty
 from .profiling import cuda_event_ms, device_memory_stats

@@ -280,6 +280,8 @@ def test_kernels_build_through_the_nvcc_loader(monkeypatch, tmp_path, mod,
     (8, 8, False, 0),    # rows off a 4-element boundary
     (8, 10, True, 0),    # D not a multiple of 4
     (8, 7, True, 0),     # the masked Transformer's D
+    (4, 7, True, 0),     # the CPU tests' D = 7
+    (4, 8, True, 1),     # 8 lanes a row: 4 edges at once
     (4, 4, True, 1),     # 1 lane a head, 8 edges at once
     (2, 16, True, 1),    # 4 lanes a head
     (8, 16, True, 1),    # a row in all 32 lanes
@@ -304,3 +306,17 @@ def test_bwd_variant_mirrors_the_source():
             lpr = H * D // 4
             refused = D % 4 != 0 or lpr > 32 or 32 % lpr != 0
             assert attn_mod.bwd_variant(H, D, True) == int(not refused)
+
+
+def test_forward_layout_mirrors_the_source():
+    """K2's C entry refuses the vector layout exactly where K3's does, and
+    both launch it only where the host would pick it."""
+    with open(nvcc_mod.source_path("edge_attention")) as f:
+        src = f.read()
+    refuse = ("if (vec && (head_dim % 4 || lpr > 32 || 32 % lpr)) return "
+              "(int)cudaErrorInvalidValue;")
+    for entry in ("edge_attention_fwd", "edge_attention_bwd"):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("\n}\n")]
+        assert refuse in body, entry
+    assert "if (vec) {\n    attn_fwd_vec_kernel<T>" in src

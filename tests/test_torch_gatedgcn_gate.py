@@ -3,7 +3,8 @@ tensors) against the JAX `gatedgcn_gate_tiled` in Pallas interpret mode and
 against `gatedgcn_gate_reference`; its backward against the JAX custom VJP.
 The CUDA kernel runs only on the card (tests/test_torch_gpu.py); its ctypes
 prototype and its build are checked in tests/test_torch_attention.py beside
-K1-K3's.
+K1-K3's.  Here also: a plain-torch mirror of how its warps share the edge
+slots.
 
 Tolerances:
 - f32 values, 1e-5 (relative and absolute): both sum the same f32 products
@@ -249,3 +250,64 @@ def test_wrapper_has_no_path_for_other_devices_and_counts_no_cpu_launch():
     (agg.sum() + e_new.sum()).backward()
     assert f.launches == before
     assert all(t.grad is not None for t in feats)
+
+
+def _slot_writers(a, n, bn):
+    """A plain-torch mirror of how K4's warps share the edge slots: [E] int
+    counts of the writes each slot gets from the row warps (row n walks
+    [max(dst_ptr[n], starts[t]), min(dst_ptr[n + 1], ends[t])) of its tile
+    t and writes the slots of weight != 0, whatever tile the source lies
+    in) and from the rest warps (each slot by the per-slot rule: not (in
+    its destination tile's range and weight != 0)), and the rest warps'
+    in-range slots, which get e_new rather than 0."""
+    s, r, w, starts, ends = _t(a, ("senders", "receivers", "edge_mask",
+                                   "starts", "ends"))
+    dst_ptr = edge_csr(s, r, n)[0].long()
+    e = len(w)
+    rows = torch.arange(n)
+    t = rows // bn
+    lo = torch.maximum(dst_ptr[:-1], starts.long()[t])
+    hi = torch.minimum(dst_ptr[1:], ends.long()[t])
+    slot = torch.arange(e)
+    walked = torch.zeros(e, dtype=torch.long)
+    for row in rows[hi > lo].tolist():  # the walk of each row's warp
+        j = slot[lo[row]:hi[row]]
+        walked[j[w[j] != 0]] += 1
+    rl = r.long()
+    ok = (rl >= 0) & (rl < n)
+    tt = torch.where(ok, rl // bn, 0)
+    in_range = ok & (slot >= starts.long()[tt]) & (slot < ends.long()[tt])
+    rest = (~(in_range & (w != 0))).long()
+    return walked, rest, in_range & (rest == 1)
+
+
+@pytest.mark.parametrize("case", ["packed", "nonlocal", "out_of_range"])
+def test_gate_slot_partition_covers_every_slot_once(case):
+    """Row walks and rest warps write every edge slot exactly once: on a
+    packed batch (every slot in range; the weight-0 padding edges on the
+    last node go to the rest warps, which write their e_new), on the same
+    batch with some sources moved to another tile (still walked: K4 has no
+    tile-local test) and on tests/test_pallas_gatedgcn.py's inputs (slots
+    outside every range, written 0 by the rest warps).  The walk's slots are
+    the plain version's counted edges."""
+    if case == "out_of_range":
+        a, n, bn, e_real = _jax_problem(5)
+    else:
+        a, n, bn = _packed(seed=4, F=16)
+    if case == "nonlocal":
+        real = np.nonzero(a["edge_mask"] > 0)[0]
+        a["senders"] = a["senders"].copy()
+        a["senders"][real[::7]] = (a["senders"][real[::7]] + bn) % n
+        assert (a["senders"] // bn != a["receivers"] // bn).sum() > 0
+    walked, rest, rest_in_range = _slot_writers(a, n, bn)
+    assert bool(((walked + rest) == 1).all())
+    in_range = edge_in_range(*_t(a, ("receivers", "starts", "ends")), bn)
+    counted = in_range & (torch.from_numpy(a["edge_mask"]) != 0)
+    assert torch.equal(walked == 1, counted)
+    pad = torch.from_numpy(a["edge_mask"] == 0)
+    assert torch.equal(rest_in_range, in_range & pad)
+    if case == "out_of_range":
+        assert not bool(in_range[e_real:].any()) and bool(rest[e_real:].all())
+    else:
+        assert bool(in_range.all()) and int(rest_in_range.sum()) == int(
+            pad.sum()) > 0

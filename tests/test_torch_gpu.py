@@ -18,6 +18,10 @@ c = sum_d out * ghat from sums of that magnitude and loses a digit to that
 cancellation.  (In bf16 the autograd path forms c from the bf16-rounded
 output, as the JAX glue does, where autograd through the plain version
 uses the unrounded one, so the two are not held to each other there.)
+K2's out and den, K3's dE1 and K4's agg and e_new are allocated without
+being filled: the tests that hand the kernels NaN-filled memory
+(`nan_filled_empty`) show that every row and slot is written, in each
+layout.
 K4 (the GatedGCN gate) against its plain version: f32 1e-5, bf16 one bf16
 rounding of agg and e_new (2**-7 relative + 1e-3); its autograd path (K4,
 then the plain backward) in f32 against autograd through the plain version
@@ -41,6 +45,7 @@ from signnet_basisnet_tpu_torch.training import (adam, build_steps,
                                                  make_zinc_predict)
 from signnet_basisnet_tpu_torch.models import gnn_model
 from signnet_basisnet_tpu_torch.models.conv import batch_csr
+from signnet_basisnet_tpu_torch.utils import nan_filled_empty
 
 spmm_mod = importlib.import_module("signnet_basisnet_tpu_torch.ops.spmm_tiled")
 attn_mod = importlib.import_module(
@@ -56,6 +61,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU path)")
     return torch.device("cuda")
+
+
+def _off_alignment(t):
+    """The same values one element past an alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
 
 
 def _batch(n_graphs=60, tile=256, seed=0):
@@ -332,6 +343,42 @@ def test_attention_bwd_writes_every_de1_slot(cuda, dtype, H, D, far,
         torch.testing.assert_close(a, b, msg=name, **_grad_tol(b))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D,far,aligned", [
+    (8, 8, False, True), (8, 8, True, True), (8, 8, False, False),
+    (8, 10, False, True), (8, 10, True, True), (8, 7, False, True),
+    (8, 7, True, True), (4, 4, False, True)])
+def test_attention_fwd_writes_every_row(cuda, dtype, H, D, far, aligned):
+    """K2 allocates out and den without filling them: every row must hold
+    the plain version's value (out 0 and den 0 where no edge counts),
+    whatever the memory held before, in the vector layout (D = 8, 4) and
+    the general one (D = 10, 7, or D = 8 with E1 off its alignment), on the
+    batch and on the one with non-tile-local edges."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    args, csr = _far_batch(gb, bn) if far else (_args(gb), batch_csr(gb))
+    qkve, _ = _attn_inputs(gb, H, D, dtype, seed=H * D + 2 * far)
+    Q, K, V, E1 = (t.detach() for t in qkve)
+    if not aligned:
+        E1 = _off_alignment(E1)
+    layout = attn_mod.bwd_variant(
+        H, D, E1.data_ptr() % (4 * E1.element_size()) == 0)
+    assert layout == int(D % 4 == 0 and aligned)
+    with nan_filled_empty():
+        out, den = attn_mod._launch_fwd(Q, K, V, E1, args[0], args[2],
+                                        *args[3:], csr[0], bn)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(torch.isfinite(den).all())
+    ref = ops.edge_softmax_attention_plain(Q, K, V, E1, *args, bn)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-3))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(den, ops.edge_softmax_den_plain(Q, K, E1, *args,
+                                                               bn),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_transformer_train_step_on_card_counts_attention_launches(cuda):
     """TransformerNet under tile_dense: one K2 per layer per forward, one K3
     per layer per backward, no K1."""
@@ -422,6 +469,31 @@ def test_gate_autograd_counter_and_nonlocal_edges(cuda):
                                       *args[:3], gb.num_nodes)
     for name, a, b in zip(("agg", "e_new"), got, ref):
         torch.testing.assert_close(a, b, msg=name, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,far", [
+    (68, False), (68, True), (70, False), (70, True), (77, False),
+    (16, False), (128, False), (128, True)])
+def test_gate_writes_every_row_and_slot(cuda, dtype, F, far):
+    """K4 allocates agg and e_new without filling them: every row and slot
+    must hold the plain version's value (the weight-0 padding slots their
+    e_new), whatever the memory held before, in one pass of a warp's lanes
+    over the row (F = 68, 70, 77, 16) and in two (F = 128), on the batch
+    and on the one with non-tile-local edges (counted fully)."""
+    gb = _batch().to(cuda)
+    bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
+    args, csr = _far_batch(gb, bn) if far else (_args(gb), batch_csr(gb))
+    feats = _gate_inputs(gb, F, dtype, seed=F + far)
+    with nan_filled_empty():
+        got = gate_mod._launch(*feats, *args, csr[0], bn)
+    want = ops.gatedgcn_gate_plain(*feats, *args, bn)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-3))
+    for name, a, b in zip(("agg", "e_new"), got, want):
+        assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), b.float(), msg=name, **tol)
 
 
 def test_gatedgcn_train_step_on_card_counts_gate_launches(cuda):
