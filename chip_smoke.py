@@ -10,8 +10,8 @@ each so a stall shows where it happened:
 0. the card's name and power limit (nvidia-smi); build every kernel of the
    ported paths from the checkout's sources, one nvcc per source, all
    started together (nvcc seconds and the -Xptxas -v summary of every
-   kernel instance; every K1, K2, K3 and K4 instance must be named and
-   must not spill);
+   kernel instance; every K1, K2, K3, K4 and K5 instance must be named
+   and must not spill);
 1. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
    and bf16, forward and transposed, at every row width a path runs it
@@ -63,9 +63,14 @@ each so a stall shows where it happened:
    runs on no model path: this is its main path), the train steps' launches
    per step, and the host packers' times.
 
-Phase 1d holds K5 against its plain version (f32 and bf16 at bench_ops'
-shape N = 3072, D = 128; D = 95; N = 300; a non-finite row of x read by a
-counted and by a weight-0 edge) and times it cold and warm beside its plain
+Phase 1d holds K5 against its plain version over NaN-filled output memory
+(f32 and bf16 at bench_ops' shape N = 3072, D = 128; D = 95; N = 300;
+D = 256, 130 and 512, rows in two passes; D = 64 and 33, 16 lanes a row:
+every K5 instance launched; narrowed tile ranges, a tile with no edge,
+long runs of equal receivers across a tile boundary; rows with no counted
+edge must be zeros; a non-finite row of x read by a counted and by a
+weight-0 edge), asserts that one spmm_flat call is one device kernel, and
+times the call cold and warm (and by the profiler) beside its plain
 version, torch.sparse.mm and the index_add_ reference.
 
 The last two lines are the kernels' JSON record and the result line.  Any
@@ -481,13 +486,14 @@ def main():
                                   for k, v in _nvcc.build_info.items()}
         record["ptxas"] = instances
         # K1 (types x vector widths x lanes per row x directions), K2 and
-        # K3 (types x layouts), K4 (types): every instance
-        # named, none spilling
+        # K3 (types x layouts), K4 (types), K5 (types x vector widths x
+        # lanes per row): every instance named, none spilling
         prefixes = {"K1": ("spmm_tiled_kernel<",),
                     "K2": ("attn_fwd_kernel<", "attn_fwd_vec_kernel<"),
                     "K3": ("attn_bwd_kernel<", "attn_bwd_vec_kernel<"),
-                    "K4": ("gate_kernel<",)}
-        expected = {"K1": 48, "K2": 4, "K3": 4, "K4": 2}
+                    "K4": ("gate_kernel<",),
+                    "K5": ("spmm_flat_kernel<",)}
+        expected = {"K1": 48, "K2": 4, "K3": 4, "K4": 2, "K5": 8}
         found = {k: sorted(i for i in instances if i.startswith(p))
                  for k, p in prefixes.items()}
         if {k: len(v) for k, v in found.items()} != expected:
@@ -496,7 +502,7 @@ def main():
         spilled = {i: instances[i] for v in found.values() for i in v
                    if instances[i][1] or instances[i][2]}
         if spilled:
-            raise AssertionError(f"K1-K4 instances spill: {spilled}")
+            raise AssertionError(f"K1-K5 instances spill: {spilled}")
 
     # ---------------------------------------------------------------- 1
     with Phase("1 kernel vs plain"):
@@ -1047,9 +1053,11 @@ def main():
         # bench_ops' flat problem (bench_ops.py:36-77): N, E, D = 3072,
         # 6912, 128, sources anywhere on the node axis, 90 % of the edges of
         # weight 1, padded to 1024 with weight-0 edges (node 0 to the last
-        # receiver), 256-node tile ranges over the padded receivers.  f32:
-        # fixed-order f32 sums on both sides, 1e-5; bf16: both round an f32
-        # sum once, one bf16 ulp (2**-7 relative) + 1e-3
+        # receiver), 256-node tile ranges over the padded receivers.  Every
+        # call as a user makes it (spmm_flat: one launch, no pointers made),
+        # its output over NaN-filled memory.  f32: fixed-order f32 sums on
+        # both sides, 1e-5; bf16: both round an f32 sum once, one bf16 ulp
+        # (2**-7 relative) + 1e-3
         flat = flat_mod.spmm_flat
         errs["K5"] = 0.0
         fN, fE, fD = bench_ops.N, bench_ops.E, bench_ops.D
@@ -1060,21 +1068,102 @@ def main():
                     [torch.from_numpy(p[k]).to(dev)
                      for k in ("sp", "rp", "wp", "st", "en")])
 
-        def flat_compare(tag, x, fargs, n, dtype):
-            ptr = flat_mod.dst_pointers(fargs[1], n)
-            got = flat_mod._launch(x, fargs[0], *fargs[2:], ptr, bn)
+        def flat_compare(tag, x, fargs, n, dtype, long_rows=False):
+            with nan_filled_empty():
+                got = flat(x, *fargs, n, bn)
             want = flat_mod.spmm_flat_plain(x, *fargs, n, bn)
             if got.dtype != dtype or got.shape != want.shape:
                 raise AssertionError(f"K5 {tag}: {got.dtype} "
                                      f"{tuple(got.shape)}")
-            attn_check("K5", f"K5 {tag}", got, want,
-                       f32_tol if dtype == torch.float32 else bf16_tol)
+            tol = f32_tol if dtype == torch.float32 else bf16_tol
+            tag = (f"K5 {tag} (vec, group) "
+                   f"{flat_mod.kernel_variant(x.shape[1], dtype, True)}")
+            if long_rows:
+                # rows of up to 2400 counted edges, summed in f32 in
+                # another order than the plain version's: 1e-5 of the sum
+                # of their terms' magnitudes more (a missing or doubled
+                # edge moves a row by a whole term)
+                mag = flat_mod.spmm_flat_plain(
+                    x.float().abs(), fargs[0], fargs[1], fargs[2].abs(),
+                    *fargs[3:], n, bn)
+                err = (got.float() - want.float()).abs()
+                errs["K5"] = _worst(errs["K5"], float(err.max()))
+                print(f"  {tag}: max_abs_err {float(err.max()):.3e} (tol "
+                      f"{tol[1]:g} + {tol[0]:g}*|ref| + 1e-5*sum|terms|)",
+                      flush=True)
+                if bool((~(err <= tol[1] + tol[0] * want.float().abs()
+                           + 1e-5 * mag)).any()):
+                    raise AssertionError(f"{tag}: kernel disagrees with its "
+                                         "plain version")
+            else:
+                attn_check("K5", tag, got, want, tol)
+            # rows with no counted edge: zeros
+            counted = edge_in_range(fargs[1], *fargs[3:], bn) & (fargs[2]
+                                                                 != 0)
+            empty = torch.ones(n, dtype=torch.bool, device=dev)
+            empty[fargs[1][counted].long()] = False
+            if bool(got[empty].any()):
+                raise AssertionError(f"K5 {tag}: a row with no counted edge "
+                                     "is not zero")
+            return int(empty.sum())
 
-        for n, d in ((fN, fD), (fN, 95), (300, fD)):
+        # bench_ops' shape, D = 95 (one element a load), N = 300 (not a
+        # multiple of 256), and the shapes that take every other instance:
+        # two passes of the row (D = 256 f32, 130, 512 bf16) and 16 lanes a
+        # row (D = 64 and 33; bf16 D = 128)
+        reached = set()
+        for n, d in ((fN, fD), (fN, 95), (300, fD), (fN, 256), (300, 130),
+                     (300, 512), (fN, 64), (fN, 33)):
             x, fargs = flat_problem(n, d)
             for dtype in (torch.float32, torch.bfloat16):
                 flat_compare(f"N={n} D={d} {str(dtype)[6:]}", x.to(dtype),
                              fargs, n, dtype)
+                vec, group = flat_mod.kernel_variant(d, dtype, True)
+                per_pass = group * flat_mod._VECS_PER_LANE[vec]
+                reached.add((dtype, vec, group))
+                reached.add((dtype, vec, "passes", -(-d // vec) > per_pass))
+        want = {(dt, v, g) for dt, vs in ((torch.float32, (1, 4)),
+                                          (torch.bfloat16, (1, 8)))
+                for v in vs for g in flat_mod._GROUPS}
+        want |= {(dt, v, "passes", True) for dt, v, _ in want}
+        if not want <= reached:
+            raise AssertionError(f"K5 checks miss instances or multi-pass "
+                                 f"rows: {sorted(map(str, want - reached))}")
+        # narrowed tile ranges (in-range and out-of-range edges share rows),
+        # a tile with no edge, and long runs of equal receivers on both
+        # sides of a tile boundary (3000 and 2000 edges on rows 255 and 256
+        # of 600, tile 0's range reaching 700 slots into row 256's run):
+        # the kernel's probe rounds and several chunks
+        x, fargs = flat_problem(fN, fD, seed=2)
+        st_n = fargs[3] + 5
+        narrow = fargs[:3] + [st_n, torch.maximum(fargs[4] - 7, st_n)]
+        en_e = fargs[4].clone()
+        en_e[3] = fargs[3][3]
+        g = np.random.default_rng(7)
+        r_b = np.sort(np.concatenate([g.integers(0, 600, 3000),
+                                      np.full(3000, 255), np.full(2000, 256)]
+                                     ).astype(np.int32))
+        w_b = ((g.random(len(r_b)) + 0.5)
+               * (g.random(len(r_b)) < 0.8)).astype(np.float32)
+        s_b = g.integers(0, 600, len(r_b)).astype(np.int32)
+        s_b, r_b, w_b = flat_mod.pad_edges_to(s_b, r_b, w_b, 1024)
+        st_b, en_b = flat_mod.tile_edge_ranges(r_b, 600, bn)
+        en_b = en_b.copy()
+        en_b[0] += 700
+        boundary = [torch.from_numpy(a).to(dev)
+                    for a in (s_b, r_b, w_b, st_b, en_b)]
+        x_b = torch.from_numpy(g.normal(size=(600, fD)).astype(np.float32)
+                               ).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            t = str(dtype)[6:]
+            n_empty = flat_compare(f"narrowed ranges {t}", x.to(dtype),
+                                   narrow, fN, dtype)
+            flat_compare(f"tile 3 empty {t}", x.to(dtype),
+                         fargs[:4] + [en_e], fN, dtype)
+            flat_compare(f"long runs across a tile boundary {t}",
+                         x_b.to(dtype), boundary, 600, dtype, long_rows=True)
+        print(f"  K5 narrowed ranges: {n_empty} rows with no counted edge",
+              flush=True)
         # a non-finite row of x, read by the weight-0 padding edges (their
         # source is node 0) and by one counted edge made to read it: only
         # that edge's destination row may be non-finite
@@ -1085,8 +1174,7 @@ def main():
         s_nf[e0] = 0
         nf_args = [s_nf] + fargs[1:]
         x[0] = float("inf")
-        got = flat_mod._launch(x, s_nf, *fargs[2:],
-                               flat_mod.dst_pointers(r_f, fN), bn)
+        got = flat(x, *nf_args, fN, bn)
         hit = torch.zeros(fN, dtype=torch.bool, device=dev)
         hit[r_f[(s_nf == 0) & (w_f != 0)].long()] = True
         bad = ~torch.isfinite(got).all(1)
@@ -1104,20 +1192,33 @@ def main():
                    flat_mod.spmm_flat_plain(x, *nf_args, fN, bn)[~hit],
                    f32_tol)
 
-        # times at bench_ops' shape, f32: the kernel (CSR pointers made
-        # beforehand) cold and warm, the wrapper as a user calls it (it
-        # makes the pointers on the card), the plain version, the gather +
-        # index_add_ reference and torch.sparse.mm on a CSR matrix of the
-        # counted edges
+        # one call on the card is one device kernel: no pointers are made
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
         x, fargs = flat_problem(fN, fD)
+        k5 = lambda: flat(x, *fargs, fN, bn)
+        k5()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                k5()
+            torch.cuda.synchronize()
+        dev_kernels = {e.key: e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA}
+        print(f"  K5 device kernels over 10 calls: {dev_kernels}", flush=True)
+        if (len(dev_kernels) != 1 or sum(dev_kernels.values()) != 10
+                or "spmm_flat_kernel" not in next(iter(dev_kernels))):
+            raise AssertionError("K5: a spmm_flat call is not one device "
+                                 "kernel")
+
+        # times at bench_ops' shape, f32: the call as a user makes it cold
+        # and warm and the profiler's time per launch, the plain version,
+        # the gather + index_add_ reference and torch.sparse.mm on a CSR
+        # matrix of the counted edges
         s_f, r_f, w_f, st_f, en_f = fargs
-        ptr = flat_mod.dst_pointers(r_f, fN)
         flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
-        k5 = lambda: flat_mod._launch(x, s_f, w_f, st_f, en_f, ptr, bn)
         k5_ms = _cuda_time_ms(k5, flush=flush)
         k5_warm_ms = _cuda_time_ms(k5)
-        k5_wrap_ms = _cuda_time_ms(lambda: flat(x, *fargs, fN, bn),
-                                   flush=flush)
         k5_plain_ms = _cuda_time_ms(
             lambda: flat_mod.spmm_flat_plain(x, *fargs, fN, bn), flush=flush)
         k5_index_add_ms = _cuda_time_ms(
@@ -1133,17 +1234,16 @@ def main():
               flat_mod.spmm_flat_plain(x, *fargs, fN, bn), torch.float32)
         k5_library_ms = _cuda_time_ms(lambda: torch.sparse.mm(a_csr, x),
                                       flush=flush)
-        # bound of the timed kernel's work: x read at the rows the counted
-        # edges name, the output written at every row, the senders and
-        # weights of every slot (the kernel reads no receivers: the CSR
-        # pointers stand for them), the tile ranges and the pointers read
-        # once; 2 flops per counted edge and feature (f32, no tensor cores)
+        # bound of the call's work: x read at the rows the counted edges
+        # name, the output written at every row, the senders, receivers
+        # and weights of every slot and the tile ranges read once; 2 flops
+        # per counted edge and feature (f32, no tensor cores)
         n_counted = int(counted.sum())
         rows_read = int(torch.unique(s_f[counted]).numel())
         dst_rows = int(torch.unique(r_f[counted]).numel())
         e_pad = s_f.shape[0]
-        k5_bytes = ((rows_read + fN) * fD * 4 + e_pad * 8
-                    + (fN + 1 + 2 * st_f.shape[0]) * 4)
+        k5_bytes = ((rows_read + fN) * fD * 4 + e_pad * 12
+                    + 2 * st_f.shape[0] * 4)
         k5_ops = 2 * n_counted * fD
         t_b = k5_bytes / PEAK_BYTES_PER_S * 1e3
         t_o = k5_ops / PEAK_F32_FLOP_PER_S * 1e3
@@ -1152,21 +1252,22 @@ def main():
                         bytes=k5_bytes, ops=k5_ops, counted_edges=n_counted,
                         rows_read=rows_read, dst_rows=dst_rows)
         prof_us = _profiled_kernel_us(k5, "spmm_flat_kernel")
-        print(f"K5 N={fN} D={fD} f32, {e_pad} edge slots: kernel_ms "
-              f"{k5_ms:.4f} cold, {k5_warm_ms:.4f} warm (wrapper with its "
-              f"pointers {k5_wrap_ms:.4f}); plain_ms {k5_plain_ms:.4f}; "
-              f"index_add_ reference {k5_index_add_ms:.4f}; library_ms "
-              f"{k5_library_ms:.4f} (torch.sparse.mm, CSR); bound "
+        print(f"K5 N={fN} D={fD} f32, {e_pad} edge slots, (vec, group) "
+              f"{flat_mod.kernel_variant(fD, x.dtype, True)}: the call "
+              f"(one launch) {k5_ms:.4f} ms cold, {k5_warm_ms:.4f} warm; "
+              f"plain_ms {k5_plain_ms:.4f}; index_add_ reference "
+              f"{k5_index_add_ms:.4f}; library_ms {k5_library_ms:.4f} "
+              f"(torch.sparse.mm, CSR); bound "
               f"{k5_bound['bound_ms'] * 1e3:.2f} us by {k5_bound['bound_by']} "
               f"({k5_bytes / 1e6:.2f} MB, {k5_ops / 1e6:.2f} MFLOP; "
               f"{n_counted} counted edges reading {rows_read} source rows "
-              f"into {dst_rows} destination rows); kernel / bound "
+              f"into {dst_rows} destination rows); cold / bound "
               f"{k5_ms / k5_bound['bound_ms']:.2f}; profiler (warm L2) "
               f"{prof_us} us per launch", flush=True)
         record.update(flat_bound=k5_bound, flat_warm_ms=k5_warm_ms,
-                      flat_wrapper_ms=k5_wrap_ms,
                       flat_index_add_ms=k5_index_add_ms,
-                      flat_profiler_us_warm=prof_us)
+                      flat_profiler_us_warm=prof_us,
+                      flat_device_kernels=dev_kernels)
         kern5 = dict(name="spmm_flat", route="cuda",
                      source="signnet_basisnet_tpu_torch/ops/csrc/"
                             "spmm_flat.cu",

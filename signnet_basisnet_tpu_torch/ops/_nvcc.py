@@ -7,9 +7,12 @@ flags, loads it with ctypes, sets each entry's prototype from `argtypes`
 `cudaGetLastError()` after its launch) and returns the `ctypes.CDLL`.  The
 library is built at first use, never when a module is imported.  The build
 writes to a temporary file and renames it into place, so a build that dies
-leaves nothing behind that a later one would load.  There is no fallback: a
-failed build raises.  `torch.utils.cpp_extension` is not used: its builds
-include PyTorch's headers and take minutes.
+leaves nothing behind that a later one would load.  nvcc's `-Xptxas -v`
+report is kept beside the library (``lib<name>_<tag>.ptxas``, written
+first) and read back when the library is reused, so `build_info` holds it
+on every run; a library without its report is built again.  There is no
+fallback: a failed build raises.  `torch.utils.cpp_extension` is not used:
+its builds include PyTorch's headers and take minutes.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# per kernel source, what its build did: seconds of nvcc (0.0 when the
-# library was already built), nvcc's -Xptxas -v report, the library's path
+# per kernel source, what its build did: seconds of nvcc (about 0 when the
+# library was already built), nvcc's -Xptxas -v report (from the build or
+# read back beside the library), the library's path
 build_info: Dict[str, dict] = {}
 
 
@@ -59,9 +63,10 @@ def load(name: str, argtypes: Dict[str, List]) -> ctypes.CDLL:
         src = f.read()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    report = os.path.join(BUILD_DIR, f"lib{name}_{tag}.ptxas")
     info = {"seconds": 0.0, "ptxas": "", "path": path}
     t0 = time.time()
-    if not os.path.exists(path):
+    if not (os.path.exists(path) and os.path.exists(report)):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -69,8 +74,12 @@ def load(name: str, argtypes: Dict[str, List]) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src_path}:\n{proc.stdout}"
                                f"{proc.stderr}")
+        with open(f"{report}.{os.getpid()}.tmp", "w") as f:
+            f.write((proc.stdout + proc.stderr).strip())
+        os.replace(f"{report}.{os.getpid()}.tmp", report)
         os.replace(tmp, path)
-        info["ptxas"] = (proc.stdout + proc.stderr).strip()
+    with open(report) as f:
+        info["ptxas"] = f.read()
     info["seconds"] = time.time() - t0
     lib = ctypes.CDLL(path)
     for entry, types in argtypes.items():

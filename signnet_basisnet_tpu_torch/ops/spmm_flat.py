@@ -15,9 +15,12 @@ multiple of bn.  No model path of either package runs it; the port's
 
 - On CUDA tensors `spmm_flat` launches the hand-written kernel
   `csrc/spmm_flat.cu` (sm_90a, built with nvcc at first use by
-  `_nvcc.load`, bound with ctypes); the CSR pointers over the receivers are
-  made on the device for each call.  There is no fallback: a failed build or
-  launch raises.  The kernel's design and bound are noted in its source.
+  `_nvcc.load`, bound with ctypes): one launch per call, which finds each
+  row's edges in the receivers itself (no CSR pointers are made).
+  `kernel_variant` picks, from the shape, the features per load (16 bytes
+  where D and the pointers allow it, else one element) and the lanes per
+  row.  There is no fallback: a failed build or launch raises.  The
+  kernel's design and bound are noted in its source.
 - On CPU tensors it runs `spmm_flat_plain`, the same function in plain torch.
 - Forward only, as `spmm_pallas` has no VJP: with grad mode on and x or the
   weights requiring grad it raises on either device.
@@ -43,15 +46,33 @@ import torch
 from . import _nvcc
 from .spmm_tiled import edge_in_range
 
-# spmm_flat_launch(x, out, senders, w, starts, ends, dst_ptr, num_nodes,
-#                  num_feat, bn, is_bf16, stream)
-LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+# spmm_flat_launch(x, out, senders, receivers, w, starts, ends, num_nodes,
+#                  num_feat, bn, is_bf16, vec, group, stream)
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
+
+# the kernel's vectors per lane per edge in one pass (`vecs_per_lane` in the
+# source), by features per load
+_VECS_PER_LANE = {1: 4, 4: 1, 8: 1}
+# lanes per row the kernel takes
+_GROUPS = (16, 32)
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/spmm_flat.cu (once per source content) and load it."""
     return _nvcc.load("spmm_flat", {"spmm_flat_launch": LAUNCH_ARGTYPES})
+
+
+def kernel_variant(num_feat: int, dtype, aligned: bool):
+    """(vec, group) of the kernel for rows of `num_feat` features of `dtype`:
+    vec features per load, 16 bytes (4 f32, 8 bf16) when num_feat is a
+    multiple of it and x and out are 16-byte `aligned`, else 1; group lanes
+    per row, 16 where 16 lanes' loads cover the row in one pass (a bf16 row
+    of 128 in 16-byte loads), else 32 (wider rows take several passes)."""
+    wide = 16 // torch.tensor([], dtype=dtype).element_size()
+    vec = wide if aligned and num_feat % wide == 0 else 1
+    need = -(-num_feat // vec) / _VECS_PER_LANE[vec]
+    return vec, next((g for g in _GROUPS if g >= need), _GROUPS[-1])
 
 
 def spmm_reference(x, senders, receivers, weights, num_nodes: int):
@@ -99,15 +120,8 @@ def spmm_flat_plain(x, senders, receivers, weights, starts, ends,
     return out.index_add_(0, receivers.long()[idx], msg).to(x.dtype)
 
 
-def dst_pointers(receivers, num_nodes: int):
-    """[num_nodes + 1] int32 CSR pointers of the dst-sorted receivers."""
-    rows = torch.arange(num_nodes + 1, dtype=torch.int32,
-                        device=receivers.device)
-    return torch.searchsorted(receivers.contiguous(), rows, out_int32=True)
-
-
-def _launch(x, senders, weights, starts, ends, dst_ptr, bn: int):
-    """K5 on CUDA tensors, given the CSR pointers: out [N, D] in x's type."""
+def _launch(x, senders, receivers, weights, starts, ends, bn: int):
+    """K5 on CUDA tensors: out [N, D] in x's type, one launch."""
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
         raise TypeError(f"spmm_flat kernel takes f32 or bf16 x [N, D], got "
                         f"{x.dtype} {tuple(x.shape)}")
@@ -115,11 +129,9 @@ def _launch(x, senders, weights, starts, ends, dst_ptr, bn: int):
     if starts.shape[0] != -(-num_nodes // bn) or ends.shape != starts.shape:
         raise ValueError(f"{num_nodes} nodes need {-(-num_nodes // bn)} tile "
                          f"ranges of {bn}, got {starts.shape[0]}")
-    if dst_ptr.shape[0] != num_nodes + 1:
-        raise ValueError("CSR pointers must have num_nodes + 1 entries")
-    if weights.shape[0] != senders.shape[0]:
-        raise ValueError("senders and weights differ in length")
-    ints = [a.contiguous() for a in (senders, starts, ends, dst_ptr)]
+    if not (weights.shape[0] == senders.shape[0] == receivers.shape[0]):
+        raise ValueError("senders, receivers and weights differ in length")
+    ints = [a.contiguous() for a in (senders, receivers, starts, ends)]
     for a in ints:
         if a.device != x.device or a.dtype != torch.int32:
             raise TypeError("spmm_flat kernel takes int32 index arrays on "
@@ -128,11 +140,13 @@ def _launch(x, senders, weights, starts, ends, dst_ptr, bn: int):
     w = weights.to(torch.float32).contiguous()
     lib = build()
     out = torch.empty_like(x)
+    vec, group = kernel_variant(num_feat, x.dtype, x.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    senders, starts, ends, dst_ptr = ints
+    senders, receivers, starts, ends = ints
     err = lib.spmm_flat_launch(
-        *(t.data_ptr() for t in (x, out, senders, w, starts, ends, dst_ptr)),
-        num_nodes, num_feat, bn, int(x.dtype == torch.bfloat16), stream)
+        *(t.data_ptr() for t in (x, out, senders, receivers, w, starts, ends)),
+        num_nodes, num_feat, bn, int(x.dtype == torch.bfloat16), vec, group,
+        stream)
     if err != 0:
         raise RuntimeError(f"spmm_flat kernel launch failed: CUDA error {err}")
     spmm_flat.launches += 1
@@ -154,8 +168,7 @@ def spmm_flat(x, senders, receivers, weights, starts, ends, num_nodes: int,
         raise NotImplementedError(
             "spmm_flat is forward only, as spmm_pallas has no VJP")
     if x.device.type == "cuda":
-        return _launch(x, senders, weights, starts, ends,
-                       dst_pointers(receivers, num_nodes), bn)
+        return _launch(x, senders, receivers, weights, starts, ends, bn)
     if x.device.type == "cpu":
         return spmm_flat_plain(x, senders, receivers, weights, starts, ends,
                                num_nodes, bn)

@@ -14,6 +14,7 @@ Tolerances, float32:
 """
 import ctypes
 import importlib
+import os
 import re
 
 import numpy as np
@@ -272,6 +273,65 @@ def test_kernels_build_through_the_nvcc_loader(monkeypatch, tmp_path, mod,
     for e in entries:
         fn = getattr(lib, e)
         assert fn.restype is ctypes.c_int and fn.argtypes
+    assert "Used 40 registers" in nvcc_mod.build_info[name]["ptxas"]
+
+
+class _AnyEntryLib:
+    """A stand-in for ctypes.CDLL: every entry name is a settable object."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, entry):
+        fn = type("Fn", (), {})()
+        setattr(self, entry, fn)
+        return fn
+
+
+@pytest.mark.parametrize("mod,name", [
+    (spmm_mod, "spmm_tiled"), (attn_mod, "edge_attention"),
+    (gate_mod, "gatedgcn_gate"), (flat_mod, "spmm_flat")])
+def test_a_reused_library_reports_its_ptxas(monkeypatch, tmp_path, mod,
+                                            name):
+    """A library built by an earlier process is loaded without nvcc, and
+    `build_info` still holds its `-Xptxas -v` report, read back from beside
+    the library (the card's smoke run names every instance from it); a
+    library whose report is gone is built again."""
+    calls = []
+
+    def fake_run(cmd, capture_output, text):
+        calls.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("")
+        return type("P", (), dict(
+            returncode=0, stdout="",
+            stderr=f"ptxas info: Function properties for {name}_k\n"
+                   "ptxas info: Used 40 registers"))()
+
+    monkeypatch.setattr(nvcc_mod, "_libs", {})
+    monkeypatch.setattr(nvcc_mod, "build_info", {})
+    monkeypatch.setattr(nvcc_mod, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(nvcc_mod, "_find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(nvcc_mod.subprocess, "run", fake_run)
+    monkeypatch.setattr(nvcc_mod.ctypes, "CDLL", _AnyEntryLib)
+    mod.build()
+    first = dict(nvcc_mod.build_info[name])
+    for _ in range(2):  # a later process: nothing loaded yet, nvcc not run
+        nvcc_mod._libs.clear()
+        nvcc_mod.build_info.clear()
+        mod.build()
+        assert len(calls) == 1
+        info = nvcc_mod.build_info[name]
+        assert info["path"] == first["path"]
+        assert info["ptxas"] == first["ptxas"]
+        assert "Used 40 registers" in info["ptxas"]
+    reports = [p for p in tmp_path.iterdir() if p.suffix == ".ptxas"]
+    assert [p.name for p in reports] == [
+        os.path.basename(first["path"])[:-3] + ".ptxas"]
+    reports[0].unlink()
+    nvcc_mod._libs.clear()
+    mod.build()
+    assert len(calls) == 2 and reports[0].exists()
     assert "Used 40 registers" in nvcc_mod.build_info[name]["ptxas"]
 
 

@@ -29,7 +29,9 @@ to the K3 tolerance, since both backwards divide by the gate sums and
 subtract c = agg * ghat.
 K5 (the flat SpMM) against its plain version: f32 1e-5, bf16 one bf16
 rounding (2**-7 relative); a non-finite row of x reaches only the rows of
-the counted edges that read it.
+the counted edges that read it; every row is written over NaN-filled
+memory, with narrowed tile ranges, an empty tile and long rows that take
+the kernel's probe rounds and several chunks; a call is one device kernel.
 """
 import importlib
 
@@ -529,14 +531,23 @@ def _flat_problem(cuda, n, d, dtype, seed=0):
     return torch.from_numpy(p["x"]).to(cuda, dtype), args
 
 
-@pytest.mark.parametrize("n,d", [(3072, 128), (3072, 95), (300, 128)])
+# bench_ops' shape, D = 95 (one element a load), N = 300 (not a multiple
+# of 256); rows in two passes (D = 256 f32, 130, 512 bf16) and rows of 16
+# lanes (D = 64, 33; bf16 D = 128): every instance the picker can choose
+# (tests/test_torch_spmm_flat.py holds them to that on the CPU)
+FLAT_SHAPES = [(3072, 128), (3072, 95), (300, 128), (3072, 256), (300, 130),
+               (300, 512), (3072, 64), (3072, 33)]
+
+
+@pytest.mark.parametrize("n,d", FLAT_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flat_kernel_matches_plain(cuda, n, d, dtype):
-    """K5 at bench_ops' shape, at D = 95 (not a multiple of 32) and at
-    N = 300 (not a multiple of 256): every row, f32 within 1e-5, bf16 within
-    one bf16 rounding of the same f32 sum (2**-7 relative)."""
+    """K5 at every shape of FLAT_SHAPES over NaN-filled output memory: every
+    row, f32 within 1e-5, bf16 within one bf16 rounding of the same f32 sum
+    (2**-7 relative)."""
     x, args = _flat_problem(cuda, n, d, dtype)
-    got = ops.spmm_flat(x, *args, n)
+    with nan_filled_empty():
+        got = ops.spmm_flat(x, *args, n)
     want = ops.spmm_flat_plain(x, *args, n)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (n, d)
@@ -566,3 +577,86 @@ def test_flat_kernel_confines_a_nonfinite_row_and_counts_launches(cuda):
     with pytest.raises(NotImplementedError):
         ops.spmm_flat(x.requires_grad_(True), *args, n)
     assert ops.spmm_flat.launches == before + 1
+
+
+def _flat_case(cuda, case, d, dtype):
+    """bench_ops' flat problem with its ranges narrowed (in-range and
+    out-of-range edges share rows), with tile 3's range emptied, with x one
+    element off its alignment, or (`boundary`) 600 nodes with runs of 3000
+    and 2000 edges on rows 255 and 256 and tile 0's range reaching 700
+    slots into row 256's run: (x, args, n)."""
+    if case == "boundary":
+        n = 600
+        g = torch.Generator().manual_seed(7)
+        r = torch.cat([torch.randint(0, n, (3000,), generator=g),
+                       torch.full((3000,), 255), torch.full((2000,), 256)])
+        r = r.sort().values.int().numpy()
+        e = len(r)
+        w = ((torch.rand(e, generator=g) + 0.5)
+             * (torch.rand(e, generator=g) < 0.8)).numpy()
+        s = torch.randint(0, n, (e,), generator=g).int().numpy()
+        s, r, w = ops.pad_edges_to(s, r, w, 1024)
+        st, en = ops.tile_edge_ranges(r, n, 256)
+        en = en.copy()
+        en[0] += 700
+        args = [torch.from_numpy(a).to(cuda) for a in (s, r, w, st, en)]
+        x = torch.randn(n, d, generator=g).to(cuda, dtype)
+        return x, args, n
+    n = 3072
+    x, args = _flat_problem(cuda, n, d, dtype, seed=2)
+    if case == "narrowed":
+        st = args[3] + 5
+        args = args[:3] + [st, torch.maximum(args[4] - 7, st)]
+    elif case == "empty_tile":
+        en = args[4].clone()
+        en[3] = args[3][3]
+        args = args[:4] + [en]
+    elif case == "unaligned":
+        x = _off_alignment(x)
+    return x, args, n
+
+
+@pytest.mark.parametrize("case", ["narrowed", "empty_tile", "boundary",
+                                  "unaligned"])
+@pytest.mark.parametrize("d", [128, 95])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_kernel_writes_every_row(cuda, case, d, dtype):
+    """Every row over NaN-filled output memory, rows with no counted edge
+    zeros: f32 within 1e-5, bf16 within one bf16 rounding.  The boundary
+    case's rows of up to 2400 counted edges are f32 sums taken in another
+    order than the plain version's: 1e-5 of the sum of their terms'
+    magnitudes more (a missing or doubled edge moves a row by a whole
+    term)."""
+    x, args, n = _flat_case(cuda, case, d, dtype)
+    with nan_filled_empty():
+        got = ops.spmm_flat(x, *args, n)
+    want = ops.spmm_flat_plain(x, *args, n).float()
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, d)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    bar = tol + tol * want.abs()
+    if case == "boundary":
+        bar += 1e-5 * ops.spmm_flat_plain(x.float().abs(), args[0], args[1],
+                                          args[2].abs(), *args[3:], n)
+    err = (got.float() - want).abs()
+    assert bool((err <= bar).all()), float(err.max())
+    if case == "empty_tile":
+        assert not bool(got[3 * 256:4 * 256].any())
+
+
+def test_flat_call_is_one_device_kernel(cuda):
+    """One spmm_flat call on the card is one device kernel, the K5 kernel:
+    no CSR pointers are made for it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, args = _flat_problem(cuda, 3072, 128, torch.float32)
+    ops.spmm_flat(x, *args, 3072)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.spmm_flat(x, *args, 3072)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    assert len(kernels) == 1 and sum(kernels.values()) == 5, kernels
+    assert "spmm_flat_kernel" in next(iter(kernels))
