@@ -63,6 +63,27 @@ each so a stall shows where it happened:
    runs on no model path: this is its main path), the train steps' launches
    per step, and the host packers' times.
 
+7. the train step captured in a CUDA graph (training.capture_train_step)
+   against the eager step, at full width from one init over 2 batches
+   copied in turn into the graph's static batch, for GIN (pallas_tile, f32
+   and bf16), the Transformer (f32) and GatedGCN (pallas_tile, f32): each
+   step's loss within 1e-5 relative and every parameter, BN statistic and
+   Adam state within 1e-5 + 1e-4 relative, each plus twice the spread of
+   two eager runs, all with deterministic algorithms (index_add_'s atomics
+   make the eager step unrepeatable, and Adam amplifies that); a replay's
+   kernel launches read from the profiler against the eager step's
+   counters (GIN 47 K1; Transformer 10 K2 and 10 K3; GatedGCN 16 K4 and
+   15 K1); then, outside deterministic mode, a fresh eager step (float
+   LR) and a fresh capture: the replay's launches again, both step times
+   in interleaved windows (host clock, median and min-max) and each one's
+   device busy share and device ops per step (profiler);
+8. the port's bench (python -m signnet_basisnet_tpu_torch.bench --mode
+   auto) and bench_roofline, each in its own process: exit 0, their JSON
+   last lines, every mfu_* share at most 100 %;
+9. checkpoint and resume on the card: the flagship trainer for 2 epochs
+   with train.checkpoint_dir under out/, then resumed to epoch 3, which
+   must start at epoch 2 at the saved LR.
+
 Phase 1d holds K5 against its plain version over NaN-filled output memory
 (f32 and bf16 at bench_ops' shape N = 3072, D = 128; D = 95; N = 300;
 D = 256, 130 and 512, rows in two passes; D = 64 and 33, 16 lanes a row:
@@ -84,6 +105,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -224,6 +246,67 @@ def _profile_steps(step, batch, kernels, steps=3):
                          if k in e.key) / busy, 4) for k in kernels},
         top=[(e.key[:60], round(e.self_device_time_total / steps, 1))
              for e in top])
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms while the block runs (index_add_ as a
+    sorted index_put_ on the card), warning only where an op has none.
+    The eager step is otherwise not repeatable: index_add_'s atomics sum
+    the readout in any order, and over a few steps Adam turns that
+    rounding into parameter steps of up to the LR (two eager f32 GIN runs
+    from one init were 6.2e-3 apart in the loss and 0.2 in a tensor after
+    5 steps), which hides what the capture itself does."""
+    import torch
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def _captured_vs_eager(le, la, lc, se, sa, sc):
+    """The captured run (losses lc, tensors sc) against the eager run (le,
+    se), with a second eager run (la, sa) for the spread: each loss within
+    1e-5 relative and each tensor within 1e-5 + 1e-4 * |eager|, each plus
+    twice the eager run-to-run spread.  Returns ((worst tensor error / bar,
+    its name), the same without the spread, the worst loss error beyond
+    its bar, the loss spread, the largest tensor spread); NaN counts as
+    worst."""
+    spread_l = max(abs(a - b) for a, b in zip(le, la))
+    spread = {n: float((sa[n] - se[n]).abs().max()) if se[n].numel()
+              else 0.0 for n in se}
+    worst_l = max(abs(a - b) - 1e-5 * abs(b) - 2 * spread_l
+                  for a, b in zip(lc, le))
+    if math.isnan(worst_l):
+        worst_l = math.inf
+    worst, plain = (-1.0, ""), (-1.0, "")
+    for n in se:
+        if not se[n].numel():
+            continue
+        err = (sc[n].double() - se[n].double()).abs()
+        bar = 1e-5 + 1e-4 * se[n].double().abs()
+        for best, b in ((0, bar + 2 * spread[n]), (1, bar)):
+            r = float((err / b).max())
+            r = math.inf if math.isnan(r) else r
+            if best == 0 and r > worst[0]:
+                worst = (r, n)
+            if best == 1 and r > plain[0]:
+                plain = (r, n)
+    return worst, plain, worst_l, spread_l, max(spread.values())
+
+
+def _train_state_tensors(model, opt):
+    """Every parameter, buffer and Adam state tensor of a model, copied
+    (Adam's by parameter index)."""
+    out = {n: t.detach().clone() for n, t in
+           list(model.named_parameters()) + list(model.named_buffers())}
+    for i, p in enumerate(model.parameters()):
+        for k, v in opt.state.get(p, {}).items():
+            out[f"adam.{i}.{k}"] = v.detach().clone()
+    return out
 
 
 _TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|L[ib](\d+)E")
@@ -449,12 +532,15 @@ def main():
         "signnet_basisnet_tpu_torch.ops.gatedgcn_gate")
     flat_mod = importlib.import_module(
         "signnet_basisnet_tpu_torch.ops.spmm_flat")
-    from signnet_basisnet_tpu_torch import bench_ops
+    from signnet_basisnet_tpu_torch import bench, bench_ops
     from signnet_basisnet_tpu_torch.ops.spmm_tiled import (
         _launch, _tile_mask, edge_in_range, spmm_tiled, spmm_tiled_plain)
     from signnet_basisnet_tpu_torch.train_zinc import run
     from signnet_basisnet_tpu_torch.utils import nan_filled_empty
+    from signnet_basisnet_tpu_torch.utils.profiling import (
+        device_kernel_counts, device_kernels)
     from signnet_basisnet_tpu_torch.training import (adam, build_steps,
+                                                     capture_train_step,
                                                      load_config,
                                                      make_zinc_predict)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1193,18 +1279,9 @@ def main():
                    f32_tol)
 
         # one call on the card is one device kernel: no pointers are made
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         x, fargs = flat_problem(fN, fD)
         k5 = lambda: flat(x, *fargs, fN, bn)
-        k5()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                k5()
-            torch.cuda.synchronize()
-        dev_kernels = {e.key: e.count for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA}
+        dev_kernels = device_kernels(k5, 10)
         print(f"  K5 device kernels over 10 calls: {dev_kernels}", flush=True)
         if (len(dev_kernels) != 1 or sum(dev_kernels.values()) != 10
                 or "spmm_flat_kernel" not in next(iter(dev_kernels))):
@@ -1632,6 +1709,230 @@ def main():
         packer = bench_ops.main(["--packer"])["packer"]
         record.update(bench_ops=res, bench_ops_packer=packer)
         kern5["launches"] = counts["spmm_flat"]
+
+    # ---------------------------------------------------------------- 7
+    # the train step captured in a CUDA graph against the eager step, at
+    # full width, from one init, over 2 batches of one set of budgets
+    # copied in turn into the graph's static batch.  Both steps take the
+    # capturable Adam (LR a device tensor), so they differ only in the
+    # capture.  A replay's launches are read from the profiler (the
+    # wrappers' counters count the capture once and no replay).
+    card = record["card"]
+    gs16 = synthetic_zinc(512, 0, 0, seed=0)["train"]
+    add_lap_pe(gs16, 16)
+    two = {k: [from_arrays(a).to(dev) for a in pack_batches(
+        g, nb, eb, gc, k=k, tile=256)[:2]] for k, g in ((8, gs), (16, gs16))}
+    capture_paths = [
+        ("GIN f32", "GIN", net, "pallas_tile", None, 8,
+         {"spmm_tiled_kernel": 47}),
+        ("GIN bf16", "GIN", net, "pallas_tile", torch.bfloat16, 8,
+         {"spmm_tiled_kernel": 47}),
+        ("Transformer f32", "Transformer", tnet, "tile_dense", None, 16,
+         {"attn_fwd": 10, "attn_bwd": 10}),
+        ("GatedGCN f32", "GatedGCN", gnet, "pallas_tile", None, 8,
+         {"gate_kernel": 16, "spmm_tiled_kernel": 15}),
+    ]
+    counters = {"spmm_tiled_kernel": lambda: spmm_tiled.launches,
+                "attn_fwd": lambda: tiled.launches_fwd,
+                "attn_bwd": lambda: tiled.launches_bwd,
+                "gate_kernel": lambda: gate.launches}
+    record["captured"] = {}
+    for label, name, kw, backend, cdt, k, per_step in capture_paths:
+        gbs = two[k]
+        seg.set_agg_backend(backend)
+
+        def make(capturable):
+            model = gnn_model(name, **kw).to(dev)
+            opt = adam(model.parameters(), capturable=capturable)
+            predict = make_zinc_predict(model, "sign_inv",
+                                        compute_dtype=cdt)
+            return model, opt, predict
+
+        with Phase(f"7a {label}: captured step vs eager step"), \
+                _deterministic():
+            runs = {}
+            for run_name in ("eager", "eager_again", "captured"):
+                model, opt, predict = make(True)
+                if run_name == "captured":
+                    reset_counts()
+                    step = capture_train_step(model, predict, opt, gbs[0])
+                    torch.cuda.synchronize()
+                    at_capture = {n: c() for n, c in counters.items()}
+                    # 3 eager warm-up steps and the capture, each once
+                    want = {n: 4 * per_step.get(n, 0) for n in counters}
+                    if at_capture != want:
+                        raise AssertionError(f"{label}: wrapper counts over "
+                                             f"warm-up and capture "
+                                             f"{at_capture}, expected {want}")
+                    reset_counts()
+                else:
+                    step = build_steps(model, predict, opt)[0]
+                losses = [float(step(gbs[i % 2], 1e-3)["loss"])
+                          for i in range(5)]
+                runs[run_name] = (losses, _train_state_tensors(model, opt),
+                                  step)
+            if any(c() for c in counters.values()):
+                raise AssertionError(f"{label}: a replay moved a wrapper "
+                                     "counter")
+            le, se, eager = runs["eager"]
+            lc, sc, captured = runs["captured"]
+            print(f"  losses eager {le}\n  losses captured {lc}",
+                  flush=True)
+            # with deterministic algorithms the eager spread is expected to
+            # be 0, and the bar is the f32 one (the ratio without the spread
+            # is printed for the record)
+            la, sa = runs["eager_again"][:2]
+            (worst, at), worst_plain, worst_l, spread_l, spread_t = (
+                _captured_vs_eager(le, la, lc, se, sa, sc))
+            print(f"  {len(se)} tensors (parameters, buffers, Adam state); "
+                  f"worst error / bar {worst:.3e} at {at} (without the "
+                  f"eager spread {worst_plain[0]:.3e} at {worst_plain[1]}); "
+                  f"loss error beyond its bar {worst_l:.3e}; eager "
+                  f"run-to-run spread: loss {spread_l:.3e}, largest tensor "
+                  f"{spread_t:.3e}", flush=True)
+            if not (worst_l <= 0 and worst <= 1):
+                raise AssertionError(f"{label}: the captured step departs "
+                                     "from the eager step")
+            # the eager step's launches by the wrappers' counters (exact),
+            # a replay's from the profiler; the profiler's count of the
+            # eager step is printed beside them
+            reset_counts()
+            eager(gbs[1], 1e-3)
+            torch.cuda.synchronize()
+            ce = {n: counters[n]() for n in per_step}
+            cc = device_kernel_counts(lambda: captured(gbs[1], 1e-3),
+                                      per_step)
+            ce_prof = device_kernel_counts(lambda: eager(gbs[1], 1e-3),
+                                           per_step)
+            print(f"  launches per step: eager (counters) {ce}, replay "
+                  f"(profiler) {cc}; eager (profiler) {ce_prof}",
+                  flush=True)
+            for n, v in per_step.items():
+                if not ce[n] == cc[n] == v:
+                    raise AssertionError(f"{label}: {n} launches per step "
+                                         f"eager {ce[n]}, replay {cc[n]}, "
+                                         f"expected {v}")
+            rec = dict(losses_eager=le, losses_captured=lc,
+                       losses_eager_again=la, worst_vs_bar=worst,
+                       worst_at=at, worst_without_spread=worst_plain,
+                       kernels_eager=ce, kernels_replay=cc,
+                       kernels_eager_profiler=ce_prof)
+
+        with Phase(f"7b {label}: eager vs captured step time"):
+            # both anew, outside deterministic mode (which makes index_add_
+            # a sorted index_put_ and fills every new tensor): the eager
+            # step as train_zinc runs it (a float LR) and a capture of it
+            del runs, eager, captured
+            model, opt, predict = make(False)
+            plain_eager = build_steps(model, predict, opt)[0]
+            cmodel, copt, cpredict = make(True)
+            captured = capture_train_step(cmodel, cpredict, copt, gbs[0])
+            cc = device_kernel_counts(lambda: captured(gbs[1], 1e-3),
+                                      per_step)
+            n_params = len(list(cmodel.parameters()))
+            print(f"  a replay's launches (profiler): {cc}; {n_params} "
+                  "parameter tensors"
+                  + (", each cast to bf16 in the forward and its gradient "
+                     "back to f32, in the eager step and in the replay"
+                     if cdt is not None else ""), flush=True)
+            for n, v in per_step.items():
+                if cc[n] != v:
+                    raise AssertionError(f"{label}: {n} launches per "
+                                         f"replay {cc[n]}, expected {v}")
+            ms = bench.interleaved_ms({"eager": plain_eager,
+                                       "captured": captured}, gbs)
+            for n, v in ms.items():
+                print(f"  {n} (host clock, {len(v)} windows of 10 steps, "
+                      f"{card}): median {float(np.median(v)):.2f} ms, min "
+                      f"{min(v):.2f}, max {max(v):.2f}", flush=True)
+            rec["step_ms"] = {n: bench.spread(v) for n, v in ms.items()}
+            for n, step in (("eager", plain_eager), ("captured", captured)):
+                prof = _profile_steps(step, gbs[0], list(per_step))
+                print(f"  profiler, {n}: {prof}", flush=True)
+                rec[f"profile_{n}"] = prof
+        rec.update(kernels_replay_timed=cc, parameter_tensors=n_params)
+        record["captured"][label] = rec
+        del captured, plain_eager, model, opt, cmodel, copt
+        seg.set_agg_backend("xla")
+        torch.cuda.empty_cache()
+    gp = record["captured"]["GatedGCN f32"].get("profile_captured")
+    if isinstance(gp, dict):
+        # K4's plain backward (phase 1c, cold) for its 16 layers against the
+        # captured GatedGCN step's device time
+        share = 16 * k4_bwd_ms * 1e3 / gp["device_us_per_step"]
+        print(f"K4 plain backward: 16 x {k4_bwd_ms * 1e3:.1f} us = "
+              f"{16 * k4_bwd_ms:.2f} ms, {share:.1%} of the captured "
+              f"GatedGCN step's device time", flush=True)
+        record["k4_bwd_share_of_captured_step"] = share
+
+    # ---------------------------------------------------------------- 8
+    with Phase("8 the benches: bench --mode auto, bench_roofline"):
+        # the port's bench.py and bench_roofline.py entry points, each in
+        # its own process, as a user runs them
+        for mod, argv, limit in (("bench", ["--mode", "auto", "--trace",
+                                            os.path.join(OUT_DIR, "trace")],
+                                  420),
+                                 ("bench_roofline", [], 300)):
+            proc = subprocess.run(
+                [sys.executable, "-m", f"signnet_basisnet_tpu_torch.{mod}",
+                 *argv], capture_output=True, text=True, timeout=limit)
+            with open(os.path.join(OUT_DIR, f"{mod}.log"), "w") as f:
+                f.write(proc.stdout + "\n--- stderr\n" + proc.stderr)
+            lines = proc.stdout.strip().splitlines()
+            for line in lines[:-1]:
+                print(f"  {mod}: {line}", flush=True)
+            for line in proc.stderr.strip().splitlines()[-4:]:
+                print(f"  {mod} (stderr): {line}", flush=True)
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"{mod} exited {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            out = json.loads(lines[-1])
+            record[mod] = out
+            print(f"  {mod} last line: " + json.dumps(
+                {k: v for k, v in out.items() if not isinstance(v, dict)}),
+                flush=True)
+        b = record["bench"]
+        if not (b["value"] > 0 and b["unit"] == "edges/s"
+                and b["mode"] in bench.CAPTURED and b["vs_baseline"] > 0
+                and b["device"] == card):
+            raise AssertionError(f"bench: unexpected last line {b}")
+        mfu = {k: v for k, v in record["bench_roofline"].items()
+               if k.startswith("mfu_")}
+        if not mfu or not all(0 < v <= 100 for v in mfu.values()):
+            raise AssertionError(f"bench_roofline: shares {mfu}")
+
+    # ---------------------------------------------------------------- 9
+    with Phase("9 checkpoint and resume on the card (train_zinc)"):
+        ck_dir = os.path.join(OUT_DIR, "checkpoints")
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        first = run(trainer_cfg(["train.epochs", "2", "name", "ckpt",
+                                 "train.checkpoint_dir", ck_dir]),
+                    device="cuda", log=lambda s: print("  " + s, flush=True))
+        saved = torch.load(os.path.join(ck_dir, "epoch_1.pt"),
+                           map_location="cpu", weights_only=True)
+        logs = []
+        resumed = run(trainer_cfg(["train.epochs", "3", "name", "ckpt",
+                                   "train.checkpoint_dir", ck_dir,
+                                   "train.resume", "true"]),
+                      device="cuda", log=lambda s: (logs.append(s),
+                                                    print("  " + s,
+                                                          flush=True)))
+        hist = resumed.history
+        print(f"  saved epoch {saved['epoch']} lr {saved['lr']:.3e}; the "
+              f"resumed run's epochs {[h['epoch'] for h in hist]}",
+              flush=True)
+        if not (saved["epoch"] == 1 == first.history[-1]["epoch"]
+                and saved["lr"] == first.history[-1]["lr"]
+                and [h["epoch"] for h in hist] == [2]
+                and any("resumed from checkpoint epoch 1" in m for m in logs)
+                and resumed.epochs_run == 3
+                and np.isfinite([hist[0]["train_loss"], hist[0]["val_mae"],
+                                 resumed.test_mae]).all()
+                and sorted(os.listdir(ck_dir)) == ["epoch_1.pt",
+                                                   "epoch_2.pt"]):
+            raise AssertionError(f"resume did not continue from epoch 1 at "
+                                 f"its LR: {first.history} -> {hist}")
+        record.update(resume_first=first.history, resume_after=hist)
 
     kernels = [kern, kern2, kern3, kern4, kern5]
     record["kernels"] = kernels

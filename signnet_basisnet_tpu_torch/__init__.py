@@ -8,8 +8,11 @@ ported path becomes a hand-written CUDA kernel for Hopper (sm_90a) under
 keeps a plain-PyTorch version beside it, which is the only path for CPU
 tensors.
 
-Ported so far: the ZINC GIN + SignNet (GINDeepSigns) trainer with the
-tile-local SpMM kernel (ops/spmm_tiled.py).  See ROADMAP.md for the rest.
+Ported so far: the ZINC GIN, Transformer and GatedGCN + SignNet
+(GINDeepSigns) trainers with every Pallas kernel of the JAX package as a
+CUDA kernel (ops/), and the benchmark entry points bench_ops, bench (with
+the train step captured in a CUDA graph) and bench_roofline.  See
+ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

@@ -3,6 +3,11 @@
 Port of signnet_basisnet_tpu/data/batcher.py.  Graphs are packed greedily
 into fixed (node, edge, graph) budgets and padded, so every batch has the same
 shapes; a background thread packs the next batches while the device computes.
+As the JAX iterator yields device arrays, `iterate_graphbatches` with a
+CUDA `device` yields batches on the card: the thread packs each batch and
+pins it in page-locked memory, and the consumer copies it with
+non_blocking=True on the current stream, so the copy overlaps the host's
+work and is ordered before the step that reads it.
 """
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..graph.batch import batch_np, from_arrays, len_nodes
 
@@ -90,14 +96,20 @@ def pack_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
 
 def iterate_graphbatches(graphs, num_nodes, num_edges, num_graphs,
                          shuffle=False, seed=0, k=None, tile=None,
-                         prefetch: int = 2) -> Iterator:
-    """Yield GraphBatch objects (CPU tensors) packed by a background thread."""
+                         prefetch: int = 2, device=None) -> Iterator:
+    """Yield GraphBatch objects packed by a background thread: on `device`
+    (pinned, then copied without blocking, where it is a card), else CPU
+    tensors."""
+    device = None if device is None else torch.device(device)
+    pin = device is not None and device.type == "cuda"
+
     def producer(q):
         try:
             for arrays in pack_batches(graphs, num_nodes, num_edges,
                                        num_graphs, shuffle=shuffle,
                                        seed=seed, k=k, tile=tile):
-                q.put(from_arrays(arrays))
+                gb = from_arrays(arrays)
+                q.put(gb.pin_memory() if pin else gb)
         finally:
             q.put(None)
 
@@ -108,4 +120,4 @@ def iterate_graphbatches(graphs, num_nodes, num_edges, num_graphs,
         item = q.get()
         if item is None:
             break
-        yield item
+        yield item if device is None else item.to(device, non_blocking=pin)

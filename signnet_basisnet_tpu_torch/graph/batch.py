@@ -87,6 +87,35 @@ class GraphBatch:
     def to(self, device, non_blocking: bool = False) -> "GraphBatch":
         return self._map(lambda t: t.to(device, non_blocking=non_blocking))
 
+    def pin_memory(self) -> "GraphBatch":
+        """Every tensor in page-locked host memory, so that a copy to the
+        card with non_blocking=True runs asynchronously."""
+        return self._map(lambda t: t.pin_memory())
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the batch by name (extras under their keys)."""
+        out = {f.name: getattr(self, f.name)
+               for f in dataclasses.fields(self) if f.name != "extras"}
+        out = {k: v for k, v in out.items() if v is not None}
+        out.update(self.extras)
+        return out
+
+    def copy_(self, src: "GraphBatch",
+              non_blocking: bool = False) -> "GraphBatch":
+        """Copy `src`'s tensors into this batch's, in place: the copy-in of
+        a captured step's static batch.  Both must hold the same tensors at
+        the same shapes (batches packed to one set of budgets do)."""
+        mine, theirs = self.tensors(), src.tensors()
+        if mine.keys() != theirs.keys():
+            raise ValueError(f"batches hold different tensors: "
+                             f"{sorted(mine)} vs {sorted(theirs)}")
+        for k, t in mine.items():
+            if t.shape != theirs[k].shape:
+                raise ValueError(f"{k}: shape {tuple(theirs[k].shape)}, the "
+                                 f"static batch has {tuple(t.shape)}")
+            t.copy_(theirs[k], non_blocking=non_blocking)
+        return self
+
     def cast_floats(self, dtype: torch.dtype) -> "GraphBatch":
         """Every floating tensor cast to `dtype` (integer arrays unchanged)."""
         return self._map(lambda t: t.to(dtype) if t.is_floating_point() else t)

@@ -1,7 +1,11 @@
 """Segment reductions — the message-passing primitives.
 
 Port of signnet_basisnet_tpu/graph/segment.py onto `index_add_` and
-`scatter_reduce`.  All functions take a static `num_segments` and never
+`scatter_reduce`, with the JAX module's two switches: the sum backend
+(`set_sum_backend`: 'xla', index_add_, or 'onehot', a product with a
+one-hot matrix built on the device by comparison, never syncing the host:
+ops/segment_matmul.py) and the neighbor-aggregation backend
+(`set_agg_backend`).  All functions take a static `num_segments` and never
 produce NaNs on empty segments: means divide by max(count, 1), and max
 returns `empty_value` for a segment with no (unmasked) entries.
 """
@@ -14,6 +18,21 @@ import torch
 # Large-but-finite stand-in for -inf: masked entries never win a max, and a
 # segment whose max stays at the sentinel is empty.
 _NEG_BIG = -1e30
+
+# Backend for sum reductions (segment_sum): 'xla' (index_add_) or 'onehot'
+# (onehot(ids)^T @ data as one matmul).  The names are the JAX package's.
+_SUM_BACKEND = "xla"
+
+
+def set_sum_backend(name: str) -> None:
+    global _SUM_BACKEND
+    if name not in ("xla", "onehot"):
+        raise ValueError(name)
+    _SUM_BACKEND = name
+
+
+def get_sum_backend() -> str:
+    return _SUM_BACKEND
 
 # Backend for neighbor aggregation (models/conv.neighbor_sum):
 # 'xla' (the flat path: gather + index_add_), 'pallas_tile' (the tile-local
@@ -39,6 +58,13 @@ def _bcast(w: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 def segment_sum(data, segment_ids, num_segments):
+    if _SUM_BACKEND == "onehot" and data.dim() >= 2:
+        # trailing axes fold into the feature dim, as in the JAX branch
+        # (imported here: ops imports this module)
+        from ..ops.segment_matmul import segment_sum_onehot
+        flat = data.reshape(data.shape[0], -1)
+        out = segment_sum_onehot(flat, segment_ids, num_segments)
+        return out.reshape((num_segments,) + tuple(data.shape[1:]))
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids.long(), data)
 

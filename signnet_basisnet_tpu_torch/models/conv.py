@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..graph import CSR_KEYS, segment as seg
+from ..nn.dropout import Dropout
 from ..nn.init import Linear
 from ..nn.norm import MaskedBatchNorm, MaskedLayerNorm
 from ..ops import (edge_softmax_attention_reference,
@@ -84,7 +85,8 @@ class GatedGCNLayer(nn.Module):
     """Residual gated graph conv (Bresson & Laurent):
     e' = D h_src + E h_dst + C e; h' = A h + sum sigma(e') * B h_src /
     (sum sigma(e') + 1e-6), then graph norm, BatchNorm over the real nodes
-    (bn_h) and the real edges (bn_e), ReLU and the residual on h and e.
+    (bn_h) and the real edges (bn_e), ReLU, the residual on h and e, then
+    dropout on both.
 
     Under the `pallas_tile` backend on a tiled batch the gate goes through
     `gatedgcn_gate_tiled` (kernel K4 on CUDA tensors, its plain version on
@@ -94,8 +96,10 @@ class GatedGCNLayer(nn.Module):
     """
 
     def __init__(self, in_dim: int, features: int, batch_norm: bool = True,
-                 residual: bool = False, graph_norm: bool = True):
+                 residual: bool = False, graph_norm: bool = True,
+                 dropout: float = 0.0, rng=None):
         super().__init__()
+        self.drop = Dropout(dropout, rng)
         self.batch_norm = batch_norm
         self.residual = residual
         self.graph_norm = graph_norm
@@ -134,7 +138,7 @@ class GatedGCNLayer(nn.Module):
         if self.residual and h_in.shape == h_new.shape:
             h_new = h_in + h_new
             e_new = e_in + e_new
-        return h_new, e_new
+        return self.drop(h_new), self.drop(e_new)
 
 
 class GraphTransformerAttention(nn.Module):
@@ -184,13 +188,15 @@ class GraphTransformerAttention(nn.Module):
 
 class GraphTransformerLayer(nn.Module):
     """Attention, O projection and FFN with LayerNorm/BatchNorm and
-    residuals.  Submodule names are the flax ones: `attention.{Q,K,V,E}`,
-    `O_h`, `ln1`, `bn1`, `ffn1`, `ffn2`, `ln2`, `bn2`."""
+    residuals; dropout after the attention and after the FFN's ReLU.
+    Submodule names are the flax ones: `attention.{Q,K,V,E}`, `O_h`, `ln1`,
+    `bn1`, `ffn1`, `ffn2`, `ln2`, `bn2`."""
 
     def __init__(self, features: int, num_heads: int, layer_norm: bool = False,
                  batch_norm: bool = True, residual: bool = True,
-                 use_edge: bool = False):
+                 use_edge: bool = False, dropout: float = 0.0, rng=None):
         super().__init__()
+        self.drop = Dropout(dropout, rng)
         self.features = features
         self.layer_norm = layer_norm
         self.batch_norm = batch_norm
@@ -215,12 +221,13 @@ class GraphTransformerLayer(nn.Module):
 
     def forward(self, gb, h, e):
         h_in1 = h
-        h = self.O_h(self.attention(gb, h, e).reshape(-1, self.features))
+        h = self.drop(self.attention(gb, h, e).reshape(-1, self.features))
+        h = self.O_h(h)
         if self.residual:
             h = h_in1 + h
         h = self._norms(gb, h, 1)
         h_in2 = h
-        h = self.ffn2(torch.relu(self.ffn1(h)))
+        h = self.ffn2(self.drop(torch.relu(self.ffn1(h))))
         if self.residual:
             h = h_in2 + h
         return self._norms(gb, h, 2)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.dropout import Dropout
 from ..nn.mlp import MLP
 from ..nn.norm import MaskedBatchNorm
 from .conv import GINConv, node_mask_like
@@ -29,25 +30,31 @@ def sign_unfuse(y):
 
 class KChannelGNN(nn.Module):
     """GIN phi over [N, K, D] x; BN normalises per feature over all N*K
-    slots (masked by the node mask).  Names: `conv_i` (with `.mlp`) and the
-    between-layer `bn_{i-1}`, as in flax."""
+    slots (masked by the node mask); dropout before each but the first
+    layer, and inside each layer's MLP.  Names: `conv_i` (with `.mlp`) and
+    the between-layer `bn_{i-1}`, as in flax."""
 
     def __init__(self, in_features: int, hidden: int, out: int,
-                 n_layers: int, use_bn: bool = True):
+                 n_layers: int, use_bn: bool = True, dropout: float = 0.0,
+                 rng=None):
         super().__init__()
         self.n_layers = n_layers
         self.use_bn = use_bn
+        self.drop = Dropout(dropout, rng)
         d_in = in_features
         for i in range(n_layers):
             if i != 0 and use_bn:
                 self.add_module(f"bn_{i - 1}", MaskedBatchNorm(d_in))
             feats = out if i == n_layers - 1 else hidden
             self.add_module(f"conv_{i}", GINConv(
-                MLP(d_in, hidden, feats, num_layers=2, use_bn=use_bn)))
+                MLP(d_in, hidden, feats, num_layers=2, use_bn=use_bn,
+                    dropout=dropout, rng=rng)))
             d_in = feats
 
     def forward(self, gb, x):
         for i in range(self.n_layers):
+            if i != 0:
+                x = self.drop(x)
             if i != 0 and self.use_bn:
                 x = getattr(self, f"bn_{i - 1}")(x, mask=node_mask_like(gb, x))
             x = getattr(self, f"conv_{i}")(gb, x)
@@ -58,11 +65,12 @@ class GINDeepSigns(nn.Module):
     """Fixed-k DeepSigns: phi over k channels, flatten, rho MLP -> [N, K]."""
 
     def __init__(self, hidden: int, phi_out: int, num_layers: int, k: int,
-                 use_bn: bool = False):
+                 use_bn: bool = False, dropout: float = 0.0, rng=None):
         super().__init__()
-        self.enc = KChannelGNN(1, hidden, phi_out, num_layers, use_bn=use_bn)
+        self.enc = KChannelGNN(1, hidden, phi_out, num_layers, use_bn=use_bn,
+                               dropout=dropout, rng=rng)
         self.rho = MLP(k * phi_out, hidden, k, num_layers=num_layers,
-                       use_bn=use_bn)
+                       use_bn=use_bn, dropout=dropout, rng=rng)
 
     def forward(self, gb, eigvecs):
         x = eigvecs[..., None]                          # N K 1

@@ -4,24 +4,29 @@ Port of signnet_basisnet_tpu/nn/mlp.py: `MLP` (lin -> relu -> [BN] per hidden
 layer, plain final linear; 2-D [N, D] and 3-D [N, K, D] input, 3-D BN
 normalising over N*K rows) and `MLPReadout` (the halving-width readout
 head).  Submodule names follow the flax names (`lin_i`, `bn_i`, `fc_i`).
-The JAX MLP's dropout, residual and other activations are not on the ported
-path.
+Dropout follows each hidden layer's BN, as in the JAX MLP.  The JAX MLP's
+residual and other activations are not on the ported path.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
+from .dropout import Dropout, DropoutRNG
 from .init import Linear
 from .norm import MaskedBatchNorm
 
 
 class MLP(nn.Module):
     def __init__(self, in_features: int, hidden: int, out: int,
-                 num_layers: int, use_bn: bool = False):
+                 num_layers: int, use_bn: bool = False, dropout: float = 0.0,
+                 rng: Optional[DropoutRNG] = None):
         super().__init__()
         self.num_layers = num_layers
         self.use_bn = use_bn
+        self.drop = Dropout(dropout, rng)
         dims = [in_features] + [hidden] * (num_layers - 1) + [out]
         for i in range(num_layers):
             self.add_module(f"lin_{i}", Linear(dims[i], dims[i + 1]))
@@ -33,6 +38,7 @@ class MLP(nn.Module):
             x = torch.relu(getattr(self, f"lin_{i}")(x))
             if self.use_bn:
                 x = getattr(self, f"bn_{i}")(x, mask=mask)
+            x = self.drop(x)
         return getattr(self, f"lin_{self.num_layers - 1}")(x)
 
 

@@ -33,8 +33,10 @@ class MaskedBatchNorm(nn.Module):
         m = None if mask is None else mask.reshape(-1, 1).to(x2.dtype)
         if self.training:
             if m is None:
-                cnt = torch.tensor(float(x2.shape[0]), dtype=x2.dtype,
-                                   device=x2.device)
+                # filled on the device: a host tensor copied in would be a
+                # copy from pageable memory, which a CUDA graph capture
+                # refuses (SignNet's rho reaches this branch)
+                cnt = x2.new_full((), float(x2.shape[0]))
                 mean = x2.mean(dim=0)
                 var = ((x2 - mean) ** 2).mean(dim=0)
             else:

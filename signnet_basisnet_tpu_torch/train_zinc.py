@@ -15,13 +15,24 @@ fused attention kernels there.  Their plain versions run only where the
 tensors lie on the CPU.  The shipped GatedGCN configs set neither option:
 add `data.tile 256 data.agg_backend pallas_tile` to run its kernels.
 
-Not ported yet, and refused: train.mp > 1, checkpoint_dir/resume, LSPE and
-the Laplacian-eigvec loss, the non-lap_pe PE modes, the full-graph
-transformer (ROADMAP.md queue 1).
+As in the JAX train_zinc: the real ZINC pickles are read where they exist under
+`data.data_dir` (`data.subset` picks the `.index` subsets), else the
+synthetic stand-in; `train.checkpoint_dir` saves the train state after
+every epoch, keeping the last `train.keep_checkpoints`, and `train.resume`
+restarts from the latest one; `model.dropout` and `model.in_feat_dropout`
+draw from a generator seeded from `train.seed`, and `train.eval_bn_mode
+batch` refuses them; `train.matmul_precision` maps to torch's float32
+matmul precision for the run (`MATMUL_PRECISION`).  The steps stay eager
+(a captured step is training/train.py: `capture_train_step`).
+
+Not ported yet, and refused: train.mp > 1, LSPE and the Laplacian-eigvec
+loss, the non-lap_pe PE modes, the full-graph transformer (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -33,12 +44,42 @@ from .data import add_lap_pe, choose_budgets, iterate_graphbatches, \
 from .graph import from_arrays
 from .graph import segment as seg
 from .models import gnn_model
-from .training import (adam, build_steps, count_params, fit, load_config,
-                       make_zinc_predict)
+from .training import (Checkpointer, adam, build_steps, count_params, fit,
+                       load_config, make_zinc_predict)
+from .utils import RunLogger
+
+# train.matmul_precision (the names jax.default_matmul_precision takes, as
+# the JAX train_zinc passes them) -> torch.set_float32_matmul_precision: full
+# f32; TF32 ("high"); one bf16 pass where a kernel has one (the JAX
+# "default" on the TPU), else TF32 ("medium")
+MATMUL_PRECISION = {None: "highest", "float32": "highest",
+                    "highest": "highest", "tensorfloat32": "high",
+                    "high": "high", "bfloat16": "medium",
+                    "default": "medium"}
+
+
+@contextlib.contextmanager
+def matmul_precision(name):
+    """torch's float32 matmul precision (and cuDNN's TF32 switch) as
+    `name` maps in MATMUL_PRECISION while the block runs; the settings
+    before it come back afterwards.  Refuses a name with no counterpart."""
+    if name not in MATMUL_PRECISION:
+        raise NotImplementedError(
+            f"train.matmul_precision {name!r} has no torch counterpart "
+            f"(known: {sorted(k for k in MATMUL_PRECISION if k)})")
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision(MATMUL_PRECISION[name])
+    torch.backends.cudnn.allow_tf32 = MATMUL_PRECISION[name] != "highest"
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
 
 
 def prepare_data(cfg):
-    splits, real = load_zinc(cfg.data.data_dir,
+    splits, real = load_zinc(cfg.data.data_dir, subset=cfg.data.subset,
                              synthetic_fallback=cfg.data.synthetic_fallback,
                              synth_sizes=(cfg.data.synth_train,
                                           cfg.data.synth_eval,
@@ -57,29 +98,32 @@ def _refuse_unported(cfg):
     if cfg.train.mp > 1 or cfg.train.num_microbatches > 1:
         raise NotImplementedError(
             "parallel training is not ported yet (ROADMAP.md queue 1 item 20)")
-    if cfg.train.checkpoint_dir or cfg.train.resume:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 9)")
     if cfg.model.use_lspe or cfg.model.use_lapeig_loss:
         raise NotImplementedError(
             "LSPE is not ported yet (ROADMAP.md queue 1 item 15)")
-    if cfg.train.matmul_precision not in (None, "float32", "highest"):
-        raise NotImplementedError(
-            f"matmul_precision {cfg.train.matmul_precision!r}: the port runs "
-            "f32 matmuls in full f32 only")
+    if cfg.train.eval_bn_mode == "batch" and (
+            cfg.model.dropout > 0 or cfg.model.in_feat_dropout > 0):
+        # batch-statistics eval runs the forward in training mode, which
+        # would draw dropout masks at eval too
+        raise ValueError(
+            "eval_bn_mode='batch' requires dropout=0 and in_feat_dropout=0 "
+            f"(got {cfg.model.dropout}, {cfg.model.in_feat_dropout})")
 
 
 def run(cfg, device: str = "cuda", log=print):
-    """Train and evaluate as the config says; returns the FitResult."""
+    """Train and evaluate as the config says; returns the FitResult.  The
+    f32 matmul precision is `train.matmul_precision`'s (full f32 unless it
+    says otherwise) while the run lasts."""
     _refuse_unported(cfg)
     device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        # full f32 everywhere, as the JAX package's Precision.HIGHEST
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    with matmul_precision(cfg.train.matmul_precision):
+        return _run(cfg, device, log)
+
+
+def _run(cfg, device, log):
     t0 = time.time()
     splits, real = prepare_data(cfg)
     log(f"dataset: ZINC ({'real' if real else 'synthetic'}) "
@@ -124,10 +168,13 @@ def run(cfg, device: str = "cuda", log=print):
     optimizer = adam(model.parameters(), cfg.train.weight_decay)
     train_step, eval_step = build_steps(model, predict, optimizer,
                                         eval_bn_mode=cfg.train.eval_bn_mode)
-    # a background thread packs the next batches while the device computes
-    train_fn = lambda ep: (gb.to(device) for gb in iterate_graphbatches(
+    # a background thread packs (and pins) the next batches while the
+    # device computes; each is copied to the device without blocking
+    train_fn = lambda ep: iterate_graphbatches(
         splits["train"], nb, eb, gb_cnt, shuffle=True,
-        seed=cfg.train.seed + ep, k=k, tile=tile, prefetch=4))
+        seed=cfg.train.seed + ep, k=k, tile=tile, prefetch=4, device=device)
+    ckpt = (Checkpointer(cfg.train.checkpoint_dir, cfg.train.keep_checkpoints)
+            if cfg.train.checkpoint_dir else None)
 
     result = fit(
         train_step, eval_step, train_batches_fn=train_fn,
@@ -137,7 +184,9 @@ def run(cfg, device: str = "cuda", log=print):
         lr_reduce_factor=cfg.train.lr_reduce_factor,
         lr_schedule_patience=cfg.train.lr_schedule_patience,
         min_lr=cfg.train.min_lr, max_time_hours=cfg.train.max_time_hours,
-        log_every=cfg.train.print_epoch_interval, logger=log)
+        log_every=cfg.train.print_epoch_interval, logger=log,
+        checkpointer=ckpt, resume=cfg.train.resume, model=model,
+        optimizer=optimizer)
     log(f"FINAL: test_mae={result.test_mae:.4f} val_mae={result.val_mae:.4f} "
         f"epochs={result.epochs_run} time={(time.time() - t0) / 3600:.2f}h")
     log(f"FINAL_BEST_VAL: test_mae={result.best_val_test_mae:.4f} "
@@ -162,7 +211,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
-    run(load_config(args.config, args.overrides), device=args.device)
+    cfg = load_config(args.config, args.overrides)
+    # stdout, and with train.log_dir also <log_dir>/<name>.log
+    logger = RunLogger(cfg.train.log_dir, cfg.name)
+    try:
+        run(cfg, device=args.device, log=logger)
+    finally:
+        logger.close()
 
 
 if __name__ == "__main__":

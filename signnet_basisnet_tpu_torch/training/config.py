@@ -8,8 +8,8 @@ JAX package's configs load unchanged:
         --config configs/gin_zinc_signinv_gin.json \
         data.agg_backend pallas_tile train.epochs 1
 
-Fields the port does not run yet (train.mp > 1, checkpoint_dir, resume,
-LSPE) are kept in the schema and refused by train_zinc.
+Fields the port does not run yet (train.mp > 1, LSPE) are kept in the
+schema and refused by train_zinc.
 """
 from __future__ import annotations
 
@@ -39,8 +39,9 @@ class TrainConfig:
     keep_checkpoints: int = 2
     resume: bool = False            # restore latest checkpoint before fit
     log_dir: Optional[str] = None
-    # f32 matmul precision: None/'float32'/'highest' run full f32 (the port
-    # never enables TF32); train_zinc refuses other values
+    # f32 matmul precision, jax.default_matmul_precision's names: None /
+    # 'float32' / 'highest' full f32, 'tensorfloat32' / 'high' TF32,
+    # 'bfloat16' / 'default' torch's 'medium' (train_zinc.MATMUL_PRECISION)
     matmul_precision: Optional[str] = None
     # mixed precision: forward/backward in this dtype, f32 master params,
     # optimizer and loss ('bfloat16'; default full f32)

@@ -2,9 +2,17 @@
 
 Port of signnet_basisnet_tpu/training/train.py for the ZINC path:
 `l1_graph_loss`, `make_zinc_predict` (with `compute_dtype`), `build_steps`
-(train/eval, `eval_bn_mode`), `evaluate` and `fit` (no checkpoint/resume yet).
-The model and the optimizer hold the state that the JAX `TrainState`
-carries; the LR is a run-time scalar set before every optimizer step.
+(train/eval, `eval_bn_mode`), `evaluate` and `fit` (with checkpoints and
+resume, training/checkpoint.py).  The model and the optimizer hold the
+state that the JAX `TrainState` carries; the LR is a run-time scalar set
+before every optimizer step.
+
+`capture_train_step` is the counterpart of the JAX benchmark's on-device
+step loop (`lax.scan` over `train_step`): the whole train step (forward,
+backward, Adam) captured once in a CUDA graph and replayed, each replay
+after a copy of the next batch into the graph's static batch (as the scan
+body indexes its stacked batches) and of the LR into the optimizer's LR
+tensor.
 
 Mixed precision follows the JAX package, not `torch.autocast`: with
 `compute_dtype` the forward runs on a copy of every parameter cast to that
@@ -22,7 +30,9 @@ import numpy as np
 import torch
 
 from ..models.pe import apply_lap_method
+from ..nn.dropout import Dropout
 from ..utils.profiling import device_memory_stats
+from .checkpoint import load_train_state, train_state
 from .metrics import masked_l1
 from .optim import ReduceLROnPlateau, set_lr
 
@@ -78,16 +88,8 @@ def build_steps(model: torch.nn.Module, predict: Callable,
         raise ValueError(eval_bn_mode)
 
     def train_step(gb, lr):
-        model.train()
-        pred = predict(gb)
-        loss = l1_graph_loss(pred, gb)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
         set_lr(optimizer, lr)
-        optimizer.step()
-        pred = pred.detach()
-        mae = masked_l1(pred, _target(pred, gb), gb.graph_mask)
-        return {"loss": loss.detach(), "mae": mae}
+        return _train_body(model, predict, optimizer, gb)
 
     @torch.no_grad()
     def eval_step(gb):
@@ -106,6 +108,108 @@ def build_steps(model: torch.nn.Module, predict: Callable,
         return {"loss_sum": loss * n, "mae_sum": loss * n, "n": n}
 
     return train_step, eval_step
+
+
+def _train_body(model, predict, optimizer, gb):
+    """One train step at the optimizer's current LR: the work a captured
+    step replays.  Grads are set to None before the backward, so that
+    under capture the backward allocates them in the graph's pool."""
+    model.train()
+    pred = predict(gb)
+    loss = l1_graph_loss(pred, gb)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    pred = pred.detach()
+    mae = masked_l1(pred, _target(pred, gb), gb.graph_mask)
+    return {"loss": loss.detach(), "mae": mae}
+
+
+def _dropout_rngs(model):
+    """The DropoutRNGs that `model`'s dropout layers draw from."""
+    return list({id(m.rng): m.rng for m in model.modules()
+                 if isinstance(m, Dropout) and m.rate}.values())
+
+
+# eager steps run before a capture (the kernels' builds, Adam's state)
+CAPTURE_WARMUP = 3
+
+
+def capture_train_step(model: torch.nn.Module, predict: Callable,
+                       optimizer: torch.optim.Optimizer, batch):
+    """The train step of `build_steps`, captured in a CUDA graph:
+    returns step(gb, lr) -> metrics, which copies `gb` into the graph's
+    static batch, fills the optimizer's LR tensor and replays.
+
+    `optimizer` must be `adam(..., capturable=True)` over `model`'s CUDA
+    parameters; `batch`, on the card, fixes the padded shapes every later
+    batch must have (batches packed to one `choose_budgets`).  The step is
+    warmed up eagerly on a side stream `CAPTURE_WARMUP` times, which builds
+    the kernels (ops/_nvcc.py) and creates Adam's state, neither of which
+    may happen under capture; the model's parameters and buffers, Adam's
+    state and the dropout generator are then put back as they were, so the
+    first replay is the first step.  The graph works on the model's own tensors:
+    each replay updates the parameters, the BatchNorm running statistics
+    and Adam's moments in place, and draws fresh dropout masks (the
+    model's generator is registered with the graph).  The kernel wrappers'
+    launch counters count the capture once and no replay.  The metrics
+    returned are copies of the graph's own output tensors, which the next
+    replay overwrites.  `step.model` is the model it trains.
+    """
+    dev = batch.senders.device
+    if dev.type != "cuda":
+        raise RuntimeError("capture_train_step needs a batch on the card")
+    if not all(g.get("capturable") and isinstance(g["lr"], torch.Tensor)
+               for g in optimizer.param_groups):
+        raise ValueError("capture_train_step needs adam(..., "
+                         "capturable=True): an LR tensor on the card")
+    static = batch._map(torch.clone)
+    tensors = list(model.parameters()) + list(model.buffers())
+    with torch.no_grad():
+        saved = [t.detach().clone() for t in tensors]
+        saved_opt = {p: {k: v.clone() for k, v in st.items()
+                         if isinstance(v, torch.Tensor)}
+                     for p, st in optimizer.state.items()}
+    rngs = _dropout_rngs(model)
+    saved_rngs = [None if r.generator is None else r.generator.get_state()
+                  for r in rngs]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(CAPTURE_WARMUP):
+            _train_body(model, predict, optimizer, static)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    with torch.no_grad():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+        for p, st in optimizer.state.items():
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor):
+                    if p in saved_opt:
+                        v.copy_(saved_opt[p][k])
+                    else:  # a fresh Adam: step 0, zero moments
+                        v.zero_()
+    graph = torch.cuda.CUDAGraph()
+    for r, st in zip(rngs, saved_rngs):
+        gen = r.on(dev)  # made by the warm-up if it was not there
+        if st is None:
+            gen.manual_seed(r.seed)
+        else:
+            gen.set_state(st)
+        graph.register_generator_state(gen)
+    optimizer.zero_grad(set_to_none=True)
+    with torch.cuda.graph(graph):
+        outputs = _train_body(model, predict, optimizer, static)
+
+    def step(gb, lr):
+        if gb is not static:
+            static.copy_(gb, non_blocking=True)
+        set_lr(optimizer, lr)
+        graph.replay()
+        return {k: v.clone() for k, v in outputs.items()}
+
+    step.model = model
+    return step
 
 
 @dataclass
@@ -143,9 +247,17 @@ def _peak_mem_mb() -> Optional[float]:
 def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
         test_batches_fn=None, *, epochs=1000, init_lr=1e-3,
         lr_reduce_factor=0.5, lr_schedule_patience=25, min_lr=1e-6,
-        max_time_hours=12.0, log_every=5, logger=None) -> FitResult:
+        max_time_hours=12.0, log_every=5, logger=None, checkpointer=None,
+        resume: bool = False, model=None, optimizer=None) -> FitResult:
     """Epoch loop with plateau LR, min-lr stop, wall-clock budget and a
-    graceful KeyboardInterrupt (the JAX `fit`, without checkpoints).
+    graceful KeyboardInterrupt: the JAX `fit`.
+
+    With a `checkpointer` (training/checkpoint.py) the train state of
+    `model` and `optimizer` (parameters, BatchNorm statistics, Adam's
+    state, the LR for the next epoch, the dropout generator) is saved
+    after every epoch; with `resume` the latest one is restored first and
+    the loop starts at the epoch after it, at the restored LR, as the JAX
+    `fit` resumes.
 
     Each history record also holds `train_time` (seconds from the epoch's
     start to its last train metric on the host) and `train_steps`.
@@ -161,6 +273,16 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
     best_val_mae = float("nan")
     best_test = float("nan")
     log = logger or (lambda msg: print(msg, flush=True))
+    if checkpointer is not None and (model is None or optimizer is None):
+        raise ValueError("checkpoints need the model and the optimizer")
+    start_epoch = 0
+    if resume and checkpointer is not None:
+        last = checkpointer.latest_step()
+        if last is not None:
+            sched.lr = load_train_state(model, optimizer,
+                                        checkpointer.restore(last))
+            start_epoch = last + 1
+            log(f"resumed from checkpoint epoch {last} (lr {sched.lr:.2e})")
 
     def run_eval(batches):
         nonlocal eval_steps
@@ -169,7 +291,7 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
         return out
 
     try:
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             te0 = time.time()
             ms = [train_step(gb, sched.lr) for gb in train_batches_fn(epoch)]
             nb = len(ms)
@@ -202,6 +324,9 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
                 log(f"epoch {epoch:4d} lr {lr_now:.2e} "
                     f"train_mae {train_mae:.4f} val_mae {val['mae']:.4f} "
                     f"({rec['time']:.1f}s){mem_s}")
+            if checkpointer is not None:
+                checkpointer.save(epoch, train_state(model, optimizer,
+                                                     sched.lr, epoch))
             if sched.converged:
                 log("converged: lr <= min_lr")
                 break

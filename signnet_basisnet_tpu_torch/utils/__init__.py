@@ -1,2 +1,4 @@
 from .checks import nan_filled_empty
-from .profiling import cuda_event_ms, device_memory_stats
+from .logging import RunLogger
+from .profiling import (Throughput, card_label, cuda_event_ms,
+                        device_memory_stats, log_memory, timed, trace)

@@ -1,15 +1,77 @@
-"""Profiling: a CUDA-event timer and CUDA memory statistics.
+"""Profiling: step timing, edges/s counters, traces, a CUDA-event timer
+and CUDA memory statistics.
 
-`device_memory_stats` is the counterpart of the memory half of
-signnet_basisnet_tpu/utils/profiling.py and reads `torch.cuda.memory_stats`;
-`cuda_event_ms` (no JAX counterpart) times a function's device work with
-CUDA events.
+Port of signnet_basisnet_tpu/utils/profiling.py: `Throughput`, `timed`,
+`trace` (a `torch.profiler` trace written into a directory, where the JAX
+one is a `jax.profiler` trace), `device_memory_stats` (from
+`torch.cuda.memory_stats`) and `log_memory`.  `cuda_event_ms` (no JAX
+counterpart) times a function's device work with CUDA events.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Callable, List, Optional
 
 import torch
+
+
+class Throughput:
+    """Accumulates (edges, nodes, graphs, seconds) across steps: the real
+    (unmasked) edges, nodes and graphs of each batch."""
+
+    def __init__(self):
+        self.edges = 0.0
+        self.nodes = 0.0
+        self.graphs = 0.0
+        self.seconds = 0.0
+        self.steps = 0
+
+    def add(self, gb, seconds: float) -> None:
+        """Count one step over batch `gb` that took `seconds` (reads the
+        masks on the host: a sync if they lie on the card)."""
+        self.edges += float(gb.edge_mask.sum())
+        self.nodes += float(gb.node_mask.sum())
+        self.graphs += float(gb.graph_mask.sum())
+        self.seconds += seconds
+        self.steps += 1
+
+    @property
+    def edges_per_s(self) -> float:
+        return self.edges / max(self.seconds, 1e-9)
+
+    def summary(self) -> dict:
+        s = max(self.seconds, 1e-9)
+        return dict(edges_per_s=self.edges / s, nodes_per_s=self.nodes / s,
+                    graphs_per_s=self.graphs / s,
+                    step_ms=1e3 * self.seconds / max(self.steps, 1))
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """torch.profiler trace of the block (host ops and, with a card, its
+    kernels), written into `log_dir` as a Chrome trace (view it with
+    Perfetto or chrome://tracing).  No trace without a log_dir."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+@contextlib.contextmanager
+def timed():
+    """Host-clock seconds of the block, in box["seconds"] after it."""
+    t0 = time.perf_counter()
+    box = {}
+    yield box
+    box["seconds"] = time.perf_counter() - t0
 
 
 def cuda_event_ms(fn: Callable, reps: int = 50, warmup: int = 3,
@@ -53,3 +115,72 @@ def device_memory_stats(device=None) -> dict:
     return {"mb_in_use": stats.get("allocated_bytes.all.current", 0) / mb,
             "peak_mb_in_use": stats.get("allocated_bytes.all.peak", 0) / mb,
             "mb_reserved": stats.get("reserved_bytes.all.current", 0) / mb}
+
+
+def log_memory(logger=None, device=None, prefix: str = "") -> dict:
+    """`device_memory_stats` of `device`, logged as one line when there
+    are any (none for the CPU)."""
+    stats = device_memory_stats(device)
+    if stats:
+        msg = prefix + " ".join(f"{k}={v:.1f}MB" for k, v in stats.items())
+        (logger or print)(msg)
+    return stats
+
+
+def card_label() -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` prints them (first card), or
+    "not measured" where nvidia-smi gives nothing."""
+    import subprocess
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    return out.splitlines()[0] if out else "not measured"
+
+
+def device_kernels(fn: Callable, calls: int = 3) -> dict:
+    """{device op name: count} over `calls` calls of fn() from
+    torch.profiler: one call as the profiler's warm-up step, then the
+    `calls` calls as its one active step (on the card the first device
+    ops after a profiler starts were now and then missing from its
+    trace).  A trace that holds no device op at all is taken again, up to
+    3 times (seen once on the card, in a phase that had read one the call
+    before); any trace with device ops is returned as it is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    out = {}
+
+    def ready(prof):  # the active step's events, when it ends
+        out.update({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)})
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        if out:
+            break
+    return out
+
+
+def device_kernel_counts(fn: Callable, names, calls: int = 3) -> dict:
+    """Device kernels per call of fn() (`device_kernels`): for each of
+    `names` the kernels whose name holds it, and under "all" every device
+    op.  The way to count the launches of a CUDA graph's replay, which the
+    wrappers' counters (counted once, at capture) do not see."""
+    ops = device_kernels(fn, calls)
+    out = {n: sum(c for k, c in ops.items() if n in k) / calls
+           for n in names}
+    out["all"] = sum(ops.values()) / calls
+    return out

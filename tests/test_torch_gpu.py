@@ -660,3 +660,173 @@ def test_flat_call_is_one_device_kernel(cuda):
                if e.device_type == DeviceType.CUDA}
     assert len(kernels) == 1 and sum(kernels.values()) == 5, kernels
     assert "spmm_flat_kernel" in next(iter(kernels))
+
+
+# ---------------------------------------------------------------------------
+# the train step captured in a CUDA graph (training.capture_train_step)
+
+# path -> (net, aggregation backend, kernel names the profiler shows and
+# their launches per train step at n_layers 3, sign_inv_layers 2)
+CAPTURE_PATHS = {
+    "GIN": (dict(hidden_dim=16, out_dim=16, n_layers=3),
+            "pallas_tile", {"spmm_tiled_kernel": 2 * 5 - 1}),
+    "Transformer": (dict(hidden_dim=32, out_dim=32, n_layers=3, num_heads=4,
+                         layer_norm=True),
+                    "tile_dense", {"attn_fwd": 3, "attn_bwd": 3}),
+    "GatedGCN": (dict(hidden_dim=32, out_dim=32, n_layers=3),
+                 "pallas_tile", {"gate_kernel": 3,
+                                 "spmm_tiled_kernel": 2 * 2 - 1}),
+}
+# the same launches by the wrappers' counters (bench_ops.launch_counts)
+CAPTURE_COUNTERS = {
+    "GIN": {"spmm_tiled": 9},
+    "Transformer": {"edge_attention_fwd": 3, "edge_attention_bwd": 3},
+    "GatedGCN": {"gatedgcn_gate_fwd": 3, "spmm_tiled": 3},
+}
+SIGNNET = dict(pos_enc_dim=8, lap_method="sign_inv", sign_inv_layers=2,
+               phi_out_dim=4, pe_aggregate="concat")
+
+
+def _two_batches(cuda, n_graphs=40, tile=256):
+    """Two batches packed to one set of budgets, on the card."""
+    gs = synthetic_zinc(2 * n_graphs, 0, 0, seed=5)["train"]
+    add_lap_pe(gs, 8)
+    nb, eb, gc = choose_budgets(gs, n_graphs, tile=tile)
+    return [from_arrays(a).to(cuda)
+            for a in pack_batches(gs, nb, eb, gc, k=8, tile=tile)[:2]]
+
+
+def _capture_pair(name, cuda, gbs, eager_runs=1, **extra):
+    """(eager steps, captured step, models, optimizers) from one init, all
+    with the capturable Adam, so that the eager and the captured steps
+    differ only in the capture: `eager_runs` eager models, then the
+    captured one (last in models and optimizers)."""
+    from signnet_basisnet_tpu_torch.training import capture_train_step
+    net = dict(CAPTURE_PATHS[name][0], **SIGNNET, **extra)
+    models = [gnn_model(name, **net).to(cuda) for _ in range(eager_runs + 1)]
+    opts = [adam(m.parameters(), capturable=True) for m in models]
+    eager = [build_steps(m, make_zinc_predict(m, "sign_inv"), o)[0]
+             for m, o in zip(models[:-1], opts[:-1])]
+    captured = capture_train_step(
+        models[-1], make_zinc_predict(models[-1], "sign_inv"), opts[-1],
+        gbs[0])
+    return eager, captured, models, opts
+
+
+def _state(model, opt):
+    out = {n: t.detach().clone() for n, t in
+           list(model.named_parameters()) + list(model.named_buffers())}
+    for i, p in enumerate(model.parameters()):
+        for k, v in opt.state.get(p, {}).items():
+            out[f"adam.{i}.{k}"] = v.detach().clone()
+    return out
+
+
+@pytest.mark.parametrize("name", list(CAPTURE_PATHS))
+def test_captured_step_matches_eager(cuda, name):
+    """4 steps over 2 batches.  The eager step is not bitwise repeatable
+    (index_add_'s atomics in the readout sum in any order), and Adam turns
+    that rounding into steps of up to the LR where a gradient is zero in
+    exact arithmetic or a ReLU sits at its kink.  So the captured step is
+    held to the eager one within 1e-5 relative (loss) and 1e-5 + 1e-4
+    relative (every parameter, BN statistic and Adam state) plus twice
+    the spread between two eager runs from the same init, all with
+    deterministic algorithms (index_add_ as a sorted index_put_), so the
+    spread is expected to be 0."""
+    gbs = _two_batches(cuda)
+    seg.set_agg_backend(CAPTURE_PATHS[name][1])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, captured, models, opts = _capture_pair(name, cuda, gbs,
+                                                      eager_runs=2)
+        for m0, m1 in zip(models[0].state_dict().values(),
+                          models[-1].state_dict().values()):
+            assert torch.equal(m0, m1)  # the warm-up was undone
+        losses = [[], [], []]
+        for i in range(4):
+            for run, step in zip(losses, eager + [captured]):
+                run.append(float(step(gbs[i % 2], 1e-3)["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        seg.set_agg_backend("xla")
+    le, la, lc = (torch.tensor(v, dtype=torch.float64) for v in losses)
+    assert bool(((lc - le).abs() <= 1e-5 * le.abs()
+                 + 2 * (la - le).abs()).all()), (le, la, lc)
+    se, sa, sc = (_state(m, o) for m, o in zip(models, opts))
+    assert se.keys() == sc.keys()
+    for k in se:
+        bar = 1e-5 + 1e-4 * se[k].abs() + 2 * (sa[k] - se[k]).abs().max()
+        err = (sc[k] - se[k]).abs()
+        assert bool((err <= bar).all()), (k, float(err.max()),
+                                          float((sa[k] - se[k]).abs().max()))
+
+
+@pytest.mark.parametrize("name", list(CAPTURE_PATHS))
+def test_captured_replay_launches_what_the_eager_step_launches(cuda, name):
+    from signnet_basisnet_tpu_torch.utils.profiling import (
+        device_kernel_counts)
+    gbs = _two_batches(cuda)
+    kernels = CAPTURE_PATHS[name][2]
+    seg.set_agg_backend(CAPTURE_PATHS[name][1])
+    try:
+        (eager,), captured, _, _ = _capture_pair(name, cuda, gbs)
+        before = bench_ops.launch_counts()
+        eager(gbs[1], 1e-3)
+        after = bench_ops.launch_counts()
+        cc = device_kernel_counts(lambda: captured(gbs[1], 1e-3), kernels)
+    finally:
+        seg.set_agg_backend("xla")
+    ce = {k: after[k] - before[k] for k in after}
+    for k, n in kernels.items():
+        assert cc[k] == n, (k, cc)
+    assert {k: v for k, v in ce.items() if v} == CAPTURE_COUNTERS[name]
+
+
+def test_capturable_adam_round_trips_through_a_checkpoint(cuda, tmp_path):
+    """A capturable optimizer's state (its step and LR on the card) saved
+    by training/checkpoint.py loads into a fresh model and optimizer, and
+    the step captured after the restore continues as the saved one."""
+    from signnet_basisnet_tpu_torch.training import (Checkpointer,
+                                                     capture_train_step,
+                                                     load_train_state,
+                                                     train_state)
+    gbs = _two_batches(cuda)
+    seg.set_agg_backend("pallas_tile")
+    try:
+        _, captured, models, opts = _capture_pair("GIN", cuda, gbs)
+        for i in range(2):
+            captured(gbs[i], 1e-3)
+        ck = Checkpointer(str(tmp_path))
+        ck.save(1, train_state(models[1], opts[1], 5e-4, 1))
+        assert opts[1].state[next(models[1].parameters())]["step"].is_cuda
+        net = dict(CAPTURE_PATHS["GIN"][0], **SIGNNET, seed=9)
+        m2 = gnn_model("GIN", **net).to(cuda)
+        o2 = adam(m2.parameters(), capturable=True)
+        lr_tensor = o2.param_groups[0]["lr"]
+        assert load_train_state(m2, o2, ck.restore()) == 5e-4
+        assert o2.param_groups[0]["lr"] is lr_tensor
+        assert float(lr_tensor) == pytest.approx(5e-4, rel=1e-7)
+        step2 = capture_train_step(m2, make_zinc_predict(m2, "sign_inv"),
+                                   o2, gbs[0])
+        a = float(captured(gbs[0], 5e-4)["loss"])
+        b = float(step2(gbs[0], 5e-4)["loss"])
+    finally:
+        seg.set_agg_backend("xla")
+    assert a == pytest.approx(b, rel=1e-6)
+    for t1, t2 in zip(models[1].state_dict().values(),
+                      m2.state_dict().values()):
+        torch.testing.assert_close(t2, t1, rtol=1e-5, atol=1e-6)
+
+
+def test_captured_step_draws_a_fresh_dropout_mask_each_replay(cuda):
+    gbs = _two_batches(cuda)
+    seg.set_agg_backend("pallas_tile")
+    try:
+        _, captured, models, _ = _capture_pair("GIN", cuda, gbs,
+                                               dropout=0.5)
+        # at LR 0 the parameters stay; only the masks change the loss
+        losses = [float(captured(gbs[0], 0.0)["loss"]) for _ in range(3)]
+    finally:
+        seg.set_agg_backend("xla")
+    assert len(set(losses)) == 3, losses
+    assert models[1].dropout_rng.generator.device.type == "cuda"

@@ -237,8 +237,6 @@ def test_train_zinc_runs_flagship_config_on_cpu(tmp_path):
     (["train.mp", "2"], "item 20"), (["model.model", "PNA"], "item 13"),
     (["model.sign_inv_net", "masked_gin"], "item 12"),
     (["model.lap_method", "sign_flip"], "item 15"),
-    (["train.checkpoint_dir", "ckpt"], "item 9"),
-    (["model.dropout", "0.1"], "item 9"),
     (["model.model", "Transformer", "model.full_graph", "true"], "item 10")])
 def test_train_zinc_refuses_unported_options(override, match):
     cfg = load_config("configs/gin_zinc_signinv_gin.json", override + [
