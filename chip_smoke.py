@@ -15,17 +15,18 @@ each so a stall shows where it happened:
 1. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
    and bf16, forward and transposed, at every row width a path runs it
-   with, F = 16, 95, 128, 1088 and 1520, and at 4958; autograd; a batch
+   with, F = 16, 74, 95, 128, 1088, 1520 and 4958; autograd; a batch
    with non-tile-local edges), K2/K3 (the fused edge-softmax attention
    forward and backward; f32 and bf16 at D = 8, 10 and 7, both layouts,
    K2's out and den at every row and K3's dE1 at every slot over NaN-filled
    memory, a batch with non-tile-local edges) and K4 (the fused GatedGCN
-   gate; f32 and bf16 at F = 68, 77, 70 and 128 (two passes of a warp's
-   lanes), agg and e_new at every row and slot over NaN-filled memory, the
+   gate; f32 and bf16 at F = 68, 77, 70, 67 and 128 (two passes of a
+   warp's lanes), agg and e_new at every row and slot over NaN-filled memory, the
    padding slots included, the autograd path, a batch with non-tile-local
    edges); CUDA-event times of each kernel, cold and warm (K1 at each of
-   its row widths, forward and transposed; K2-K4 also without the batch's
-   padding edges), of its plain
+   its row widths, forward and transposed; K2/K3 at D = 8, and at 7 and 10
+   in the general layout; K4 at F = 68, 67 and 77; K2-K4 also without the
+   batch's padding edges), of its plain
    version and, where one exists, of one library call (a yardstick, never
    used by the port: torch.sparse.mm at each of K1's widths) beside the
    bound the card's memory and arithmetic rates put on the same work;
@@ -82,7 +83,30 @@ each so a stall shows where it happened:
    last lines, every mfu_* share at most 100 %;
 9. checkpoint and resume on the card: the flagship trainer for 2 epochs
    with train.checkpoint_dir under out/, then resumed to epoch 3, which
-   must start at epoch 2 at the saved LR.
+   must start at epoch 2 at the saved LR;
+10. the masked all-eigenvector SignNet (full-EVD batches, k = 37): one
+   full-width train step of configs/gatedgcn_zinc_signinv_masked.json with
+   data.agg_backend pallas_tile (GatedGCNNet 16x67, its 8-layer phi over
+   the [N, 74, 67] stack through K1 at F = 74 and 4958) and of
+   configs/transformer_zinc_signinv_masked.json as shipped (tile_dense,
+   10x56 with 8 heads: K2/K3 at D = 7), each card vs CPU with phase 4a's
+   bar (the card's plain path in f32 and f64 too; the GatedGCN check also
+   prints each f32 run's pre-ReLU signs that differ from the f64 run's,
+   which show why it takes that bar); then train_zinc.run
+   of both in f32 and of the GatedGCN one in bf16, with the launch counts
+   read against 16 K4 and 15 K1 (1 at F = 74 and 7 at 4958 forward, 7 at
+   4958 transposed) per train step and 16 K4 and 8 K1 per eval step
+   (GatedGCN), 10 K2 and 10 K3 per train step and 10 K2 per eval step
+   (Transformer), the warm step time on the host clock and peak memory;
+11. the PE baselines and LSPE through train_zinc.run at their published
+   widths on small synthetic splits: configs/gatedgcn_zinc_lappe{,_abs,
+   _canonical}.json with data.tile 256 data.agg_backend pallas_tile (16 K4
+   a step), gin_zinc_lappe (the same overrides: 32 K1 at F = 122 a train
+   step, 16 an eval step), transformer_zinc_lappe with data.tile 256
+   data.agg_backend tile_dense (8 K2 and 8 K3 at D = 10 a train step),
+   gin_zinc_rwpe_lspe (K1 at F = 95) and gatedgcn_zinc_rwpe_lspe (pallas_tile
+   overrides, and no K4: the LSPE layer has none); finite val and test
+   MAE, and under sign_flip one eval draw per eval batch.
 
 Phase 1d holds K5 against its plain version over NaN-filled output memory
 (f32 and bf16 at bench_ops' shape N = 3072, D = 128; D = 95; N = 300;
@@ -116,10 +140,17 @@ TRANSFORMER_CONFIG = os.path.join("configs",
                                   "transformer_zinc_signinv_gin.json")
 GATEDGCN_CONFIG = os.path.join("configs", "gatedgcn_zinc_signinv_gin.json")
 OUT_DIR = os.path.join("out", "chip_smoke")
+MASKED_GATEDGCN_CONFIG = os.path.join("configs",
+                                      "gatedgcn_zinc_signinv_masked.json")
+MASKED_TRANSFORMER_CONFIG = os.path.join(
+    "configs", "transformer_zinc_signinv_masked.json")
 # every row width K1 runs at: GIN 16 (phi layer 1), 95 (the base layers),
 # 1520 (phi layers 2-8: 16 channels of 95); the GatedGCN phi 1088 (16 of
-# 68); bench_ops 128
-K1_FEATS = (16, 95, 128, 1088, 1520)
+# 68); the masked GatedGCN phi 74 (layer 1: 2k = 74 channels of width 1)
+# and 4958 (layers 2-8: 74 of 67); bench_ops 128
+K1_FEATS = (16, 74, 95, 128, 1088, 1520, 4958)
+# each K4 width a path runs: GatedGCN SignNet 68, masked 67, LapPE 77
+K4_FEATS = (68, 67, 77)
 
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores (the kernel's FMAs run in f32)
@@ -393,7 +424,8 @@ def _gate_plain_on_card():
 
 
 def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
-                            plain_on_card=None, floor_cpu_error=False):
+                            plain_on_card=None, floor_cpu_error=False,
+                            relu_inputs=None):
     """One train step from the same weights: on the card in f32, on the CPU
     (the kernels' plain versions) in f32 and in f64.  The f64 step stands
     for the exact one; the card's f32 error against it must stay within
@@ -412,7 +444,11 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
     of its kink sends the gradient of the layers below it one way or the
     other, so one run lands near the f64 step by luck and another does not,
     with or without the kernels (the card's plain run shows which way it
-    fell).  Returns the card's (step, batch) and the errors read."""
+    fell).  With `relu_inputs` (a test on module names: the modules whose
+    output a ReLU takes) each f32 run's pre-ReLU signs are compared with
+    the CPU's f64 run's, and the flips printed: how many, how near 0 they
+    lie in f64, and how many sit in the layer of the worst gradient.
+    Returns the card's (step, batch) and the errors read."""
     import numpy as np
     import torch
     from signnet_basisnet_tpu_torch.graph import from_arrays
@@ -423,13 +459,22 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
                  ("card_plain_f64", "cuda", torch.float64, plain_on_card)]
     runs += [("cpu", "cpu", torch.float32, contextlib.nullcontext),
              ("cpu_f64", "cpu", torch.float64, contextlib.nullcontext)]
-    losses, grads = {}, {}
+    losses, grads, signs = {}, {}, {}
     for run_name, d, dt, ctx in runs:
         model = gnn_model(model_name, **net).to(d, dt)
         step = make_step(model)
         batch = from_arrays(arrays).to(d).cast_floats(dt)
+        rec = signs.setdefault(run_name, {})
+        hooks = [mod.register_forward_hook(
+            lambda mod, i, o, n=n: rec.__setitem__(n, o.detach().cpu()))
+            for n, mod in model.named_modules()
+            if relu_inputs is not None and relu_inputs(n)]
         with ctx():
             losses[run_name] = float(step(batch, 1e-3)["loss"])
+        for h in hooks:
+            h.remove()
+        if run_name != "cpu_f64":
+            signs[run_name] = {n: o > 0 for n, o in rec.items()}
         grads[run_name] = {n: p.grad.detach().cpu().double() for n, p in
                            model.named_parameters() if p.grad is not None}
         if run_name == "card":
@@ -501,6 +546,19 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
         print(f"  grads: worst card error / (10x the larger of the CPU's "
               f"error and its median relative error) {worst[0]:.3f} at "
               f"{worst[1]}", flush=True)
+    if relu_inputs is not None:
+        ref = signs["cpu_f64"]
+        layer = worst[1].split(".")[0] + "."
+        for run_name in (r for r in signs if not r.endswith("f64")):
+            flips = {n: s != (ref[n] > 0) for n, s in signs[run_name].items()}
+            near = [float(ref[n][f].abs().max()) for n, f in flips.items()
+                    if f.any()]
+            print(f"  pre-ReLU signs, {run_name} f32 against the CPU's f64: "
+                  f"{sum(int(f.sum()) for f in flips.values())} flips in "
+                  f"{len(near)} of {len(flips)} tensors, all within "
+                  f"{max(near, default=0.0):.2e} of 0 in f64; in {layer}* "
+                  f"{sum(int(f.sum()) for n, f in flips.items() if n.startswith(layer))}",
+                  flush=True)
     if worst[0] > 1:
         raise AssertionError(f"grad {worst[1]}: the card's f32 error is "
                              "beyond 10x the CPU's")
@@ -516,7 +574,8 @@ def main():
     import numpy as np
     import torch
 
-    from signnet_basisnet_tpu_torch.data import (add_lap_pe, choose_budgets,
+    from signnet_basisnet_tpu_torch.data import (add_full_evd, add_lap_pe,
+                                                 choose_budgets,
                                                  pack_batches,
                                                  synthetic_zinc)
     from signnet_basisnet_tpu_torch.graph import edge_csr, from_arrays
@@ -624,10 +683,10 @@ def main():
                                      f"version at {int(bad.sum())} entries")
 
         # every F a path launches K1 with (GIN 16, 95, 1520; the GatedGCN
-        # phi 1088; bench_ops 128), 256 and 512 (32 and 64 lanes per row)
-        # and a GINConv override's 74 * 67 = 4958, which takes the
-        # one-element loads: each picks its own variant
-        for feat in K1_FEATS + (256, 512, 4958):
+        # phi 1088; the masked GatedGCN phi 74 and 74 * 67 = 4958, which
+        # takes the one-element loads; bench_ops 128), 256 and 512 (32 and
+        # 64 lanes per row): each picks its own variant
+        for feat in K1_FEATS + (256, 512):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(nb, feat, device=dev, generator=gen).to(dtype)
                 variant = spmm_mod.kernel_variant(feat, dtype, True, bn)
@@ -713,9 +772,8 @@ def main():
                   lib, spmm_tiled_plain(x, *args, bn), torch.float32)
             t["library_ms"] = _cuda_time_ms(
                 lambda: torch.sparse.mm(a_csr, x), flush=flush)
-            if feat == 1520:
-                t["plain_ms"] = _cuda_time_ms(
-                    lambda: spmm_tiled_plain(x, *args, bn), flush=flush)
+            t["plain_ms"] = _cuda_time_ms(
+                lambda: spmm_tiled_plain(x, *args, bn), flush=flush)
             print(f"spmm_tiled F={feat} f32 (vec, group) {t['variant']}: "
                   + "; ".join(
                       f"{d} {t[f'{d}_cold_ms'] * 1e3:.2f} us cold, "
@@ -728,8 +786,7 @@ def main():
                       for d in ("forward", "transposed"))
                   + f"; library_ms {t['library_ms'] * 1e3:.2f} us "
                     "(torch.sparse.mm, CSR)"
-                  + (f"; plain_ms {t['plain_ms'] * 1e3:.2f} us"
-                     if "plain_ms" in t else ""), flush=True)
+                  + f"; plain_ms {t['plain_ms'] * 1e3:.2f} us", flush=True)
             k1_times[feat] = t
         print(f"  {n_counted} counted edges; x read at {rows_read[False]} "
               f"(forward) and {rows_read[True]} (transposed) of {nb} rows",
@@ -935,23 +992,29 @@ def main():
         dst_rows = int(torch.unique(gb.receivers[ok]).numel())
         src_rows = int(torch.unique(gb.senders[ok]).numel())
         fb = 4
-        k2_bytes = ((dst_rows + 2 * src_rows + n_counted) * F * fb
-                    + nb * F * fb + nb * H * 4
-                    + (2 * eb + nb + 1 + 2 * n_tiles) * 4)
-        k2_ops = n_counted * (5 * F + 5 * H) + nb * F
-        k3_bytes = ((dst_rows + 2 * src_rows + n_counted) * F * fb
-                    + dst_rows * (F + H) * 4 + 3 * nb * F * 4 + eb * F * 4
-                    + (4 * eb + 2 * (nb + 1) + 2 * n_tiles) * 4)
-        k3_ops = n_counted * (20 * F + 12 * H) + nb * F
-        attn_bounds = {}
-        for kname, nbytes, ops_ in (("K2", k2_bytes, k2_ops),
-                                    ("K3", k3_bytes, k3_ops)):
-            t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-            t_o = ops_ / PEAK_F32_FLOP_PER_S * 1e3
-            attn_bounds[kname] = dict(
-                bound_ms=max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
-                bytes=nbytes, ops=ops_)
+
+        def attn_bounds_at(H, F):
+            k2_bytes = ((dst_rows + 2 * src_rows + n_counted) * F * fb
+                        + nb * F * fb + nb * H * 4
+                        + (2 * eb + nb + 1 + 2 * n_tiles) * 4)
+            k2_ops = n_counted * (5 * F + 5 * H) + nb * F
+            k3_bytes = ((dst_rows + 2 * src_rows + n_counted) * F * fb
+                        + dst_rows * (F + H) * 4 + 3 * nb * F * 4
+                        + eb * F * 4 + (4 * eb + 2 * (nb + 1) + 2 * n_tiles)
+                        * 4)
+            k3_ops = n_counted * (20 * F + 12 * H) + nb * F
+            out = {}
+            for kname, nbytes, ops_ in (("K2", k2_bytes, k2_ops),
+                                        ("K3", k3_bytes, k3_ops)):
+                t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_o = ops_ / PEAK_F32_FLOP_PER_S * 1e3
+                out[kname] = dict(
+                    bound_ms=max(t_b, t_o),
+                    bound_by="bytes" if t_b >= t_o else "operations",
+                    bytes=nbytes, ops=ops_)
+            return out
+
+        attn_bounds = attn_bounds_at(H, F)
         for kname, k_ms, p_ms in (("K2", k2_ms, k2_plain_ms),
                                   ("K3", k3_ms, k3_plain_ms)):
             b = attn_bounds[kname]
@@ -985,6 +1048,42 @@ def main():
                      plain_ms=k3_plain_ms,
                      bound_ms=attn_bounds["K3"]["bound_ms"],
                      bound_by=attn_bounds["K3"]["bound_by"], library_ms=None)
+        # the general layout at the other head widths a path runs: D = 7
+        # (masked Transformer) and 10 (LapPE Transformer), cold, with
+        # their plain versions and bounds
+        attn_times = {}
+        for D in (7, 10):
+            Qd, Kd, Vd, Ed = (t.detach() for t in attn_inputs(
+                H, D, torch.float32))
+            fa = (Qd, Kd, Vd, Ed, gb.senders, gb.edge_mask, *args[3:],
+                  csr[0], bn)
+            od, dd = attn._launch_fwd(*fa)
+            gd = torch.randn(nb, H, D, device=dev, generator=gen)
+            gh = gd / (dd[:, :, None] + 1e-6)
+            cd = (od * gh).sum(-1)
+            ba = (Qd, Kd, Vd, Ed, gh, cd, gb.senders, gb.receivers,
+                  gb.edge_mask, *args[3:], csr, bn)
+            b = attn_bounds_at(H, H * D)
+            t = {"K2": dict(cold_ms=_cuda_time_ms(
+                    lambda: attn._launch_fwd(*fa), flush=flush),
+                    plain_ms=_cuda_time_ms(lambda: plain(
+                        Qd, Kd, Vd, Ed, *args, bn), flush=flush),
+                    **b["K2"]),
+                 "K3": dict(cold_ms=_cuda_time_ms(
+                     lambda: attn._launch_bwd(*ba), flush=flush),
+                     plain_ms=_cuda_time_ms(
+                         lambda: attn.edge_attention_bwd_plain(
+                             Qd, Kd, Vd, Ed, gh, cd, *args, bn),
+                         flush=flush), **b["K3"])}
+            for kname, v in t.items():
+                print(f"{kname} H={H} D={D} f32 (general layout): kernel_ms "
+                      f"{v['cold_ms']:.4f} cold, plain_ms "
+                      f"{v['plain_ms']:.4f}, bound "
+                      f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']} "
+                      f"({v['bytes'] / 1e6:.2f} MB); kernel / bound "
+                      f"{v['cold_ms'] / v['bound_ms']:.2f}", flush=True)
+            attn_times[D] = t
+        record["attention_times_general"] = attn_times
         del flush
 
     with Phase("1c GatedGCN gate kernel (K4) vs plain"):
@@ -1019,9 +1118,9 @@ def main():
 
         n_real = int((gb.edge_mask != 0).sum())
         assert bool((gb.edge_mask[:n_real] != 0).all())
-        # F = 68, 77, 70 in one pass of the warp's lanes (96 features);
-        # 128 in two
-        for F in (68, 77, 70, 128):
+        # F = 68, 77, 70, 67 in one pass of the warp's lanes (96
+        # features); 128 in two
+        for F in (68, 77, 70, 67, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 feats, (agg, e_new) = gate_compare(
                     f"F={F} {str(dtype)[6:]}", args, csr, F, dtype)
@@ -1100,15 +1199,20 @@ def main():
         rows = {k: int(torch.unique(v).numel()) for k, v in (
             ("Bh", gb.senders[counted]), ("Dh", gb.senders[in_rng]),
             ("Eh", gb.receivers[in_rng]))}
-        k4_bytes = ((sum(rows.values()) + n_in + eb + nb) * F * 4
-                    + (3 * eb + nb + 1 + 2 * n_tiles) * 4)
-        k4_ops = (2 * n_in + 8 * n_counted + 2 * nb) * F
-        t_b = k4_bytes / PEAK_BYTES_PER_S * 1e3
-        t_o = k4_ops / PEAK_F32_FLOP_PER_S * 1e3
-        k4_bound = dict(bound_ms=max(t_b, t_o),
+
+        def k4_bound_at(F):
+            nbytes = ((sum(rows.values()) + n_in + eb + nb) * F * 4
+                      + (3 * eb + nb + 1 + 2 * n_tiles) * 4)
+            ops_ = (2 * n_in + 8 * n_counted + 2 * nb) * F
+            t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_o = ops_ / PEAK_F32_FLOP_PER_S * 1e3
+            return dict(bound_ms=max(t_b, t_o),
                         bound_by="bytes" if t_b >= t_o else "operations",
-                        bytes=k4_bytes, ops=k4_ops, rows=rows,
+                        bytes=nbytes, ops=ops_, rows=rows,
                         in_range_slots=n_in, counted_edges=n_counted)
+
+        k4_bound = k4_bound_at(F)
+        k4_bytes, k4_ops = k4_bound["bytes"], k4_bound["ops"]
         prof_us = _profiled_kernel_us(lambda: gate_mod._launch(*k4_args),
                                       "gate_kernel")
         print(f"K4 F=68 f32: kernel_ms "
@@ -1126,6 +1230,27 @@ def main():
                       gate_no_padding_warm_ms=k4_cut_warm_ms,
                       gate_bound=k4_bound,
                       gate_profiler_us_warm=prof_us, gate_bwd_ms=k4_bwd_ms)
+        # the other widths a path runs K4 at: cold and warm, its plain
+        # version, the bound and the profiler's device time
+        k4_times = {}
+        for F in K4_FEATS[1:]:
+            fe = [t.detach() for t in gate_inputs(F, torch.float32)]
+            fn = lambda: gate_mod._launch(*fe, *args, csr[0], bn)
+            b = k4_bound_at(F)
+            t = dict(cold_ms=_cuda_time_ms(fn, flush=flush),
+                     warm_ms=_cuda_time_ms(fn),
+                     plain_ms=_cuda_time_ms(lambda: gate_plain(*fe, *args,
+                                                               bn),
+                                            flush=flush),
+                     profiler_us=_profiled_kernel_us(fn, "gate_kernel"),
+                     bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            print(f"K4 F={F} f32: kernel_ms {t['cold_ms']:.4f} cold, "
+                  f"{t['warm_ms']:.4f} warm (profiler {t['profiler_us']} "
+                  f"us), plain_ms {t['plain_ms']:.4f}, bound "
+                  f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}; kernel "
+                  f"/ bound {t['cold_ms'] / t['bound_ms']:.2f}", flush=True)
+            k4_times[F] = t
+        record["k4_times"] = k4_times
         kern4 = dict(name="gatedgcn_gate_fwd", route="cuda",
                      source="signnet_basisnet_tpu_torch/ops/csrc/"
                             "gatedgcn_gate.cu",
@@ -1933,6 +2058,195 @@ def main():
             raise AssertionError(f"resume did not continue from epoch 1 at "
                                  f"its LR: {first.history} -> {hist}")
         record.update(resume_first=first.history, resume_after=hist)
+
+    # --------------------------------------------------------------- 10
+    def masked_cfg(path, extra):
+        return load_config(path, [
+            "data.synth_train", "384", "data.synth_eval", "128",
+            "train.print_epoch_interval", "1", "out_dir", OUT_DIR] + extra)
+
+    gmcfg = masked_cfg(MASKED_GATEDGCN_CONFIG,
+                       ["data.agg_backend", "pallas_tile"])
+    tmcfg = masked_cfg(MASKED_TRANSFORMER_CONFIG, [])
+    k_full = gmcfg.model.pos_enc_dim
+    with Phase("10a masked GatedGCN full-width step, card vs CPU"):
+        # full-EVD batches packed at k = 37, the phase-1 budgets; the phi's
+        # first layer aggregates 2k = 74 channels of width 1, the other
+        # seven 74 of 67 (F = 4958), all through K1
+        gs_m = synthetic_zinc(512, 0, 0, seed=0)["train"]
+        add_full_evd(gs_m, normalization=gmcfg.data.evd_normalization)
+        arrays_m = pack_batches(gs_m, nb, eb, gc, k=k_full, tile=256)[0]
+        print(f"  masked batch: {int(arrays_m['graph_mask'].sum())} graphs, "
+              f"eigvecs {arrays_m['eigvecs'].shape}, largest graph "
+              f"{int(arrays_m['n_node'].max())} nodes", flush=True)
+
+        def net_of(cfg):
+            m = cfg.model
+            out = dict(hidden_dim=m.hidden_dim, out_dim=m.out_dim,
+                       n_layers=m.n_layers, residual=m.residual,
+                       batch_norm=m.batch_norm, readout=m.readout,
+                       pos_enc_dim=m.pos_enc_dim, lap_method=m.lap_method,
+                       sign_inv_net=m.sign_inv_net,
+                       sign_inv_layers=m.sign_inv_layers,
+                       phi_out_dim=m.phi_out_dim,
+                       pe_aggregate=m.pe_aggregate, seed=cfg.train.seed)
+            if m.model == "Transformer":
+                out.update(num_heads=m.num_heads, layer_norm=m.layer_norm)
+            return out
+
+        seg.set_agg_backend(gmcfg.data.agg_backend)
+        torch.cuda.reset_peak_memory_stats()
+        # the CPU's typical error as a floor, as for the Transformer (4a):
+        # each f32 run flips pre-ReLU signs that lie within float noise of
+        # 0 (printed), and one such flip in a GatedGCN layer's bn_h puts
+        # that layer's A and B gradients an order of magnitude beyond the
+        # CPU's f32 error: on the kernel path, and in some runs on the
+        # card's plain path (no kernels) too
+        _, record["masked_gatedgcn_card_vs_cpu"] = _check_step_card_vs_cpu(
+            "GatedGCN", net_of(gmcfg), arrays_m, lambda model: build_steps(
+                model, make_zinc_predict(model, "sign_inv"),
+                adam(model.parameters()))[0],
+            plain_on_card=_gate_plain_on_card, floor_cpu_error=True,
+            relu_inputs=lambda n: (n.endswith(("bn_h", "bn_e")) or (
+                n.startswith("sign_inv_net") and n.endswith("lin_0"))))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"  peak memory over the phase's card runs (f32, plain f32 "
+              f"and plain f64 steps): {peak:.0f} MiB", flush=True)
+        record["masked_gatedgcn_step_peak_mib"] = peak
+
+    with Phase("10b masked Transformer full-width step, card vs CPU"):
+        seg.set_agg_backend(tmcfg.data.agg_backend)
+        _, record["masked_transformer_card_vs_cpu"] = (
+            _check_step_card_vs_cpu(
+                "Transformer", net_of(tmcfg), arrays_m,
+                lambda model: build_steps(
+                    model, make_zinc_predict(model, "sign_inv"),
+                    adam(model.parameters()))[0],
+                plain_on_card=_attention_plain_on_card,
+                floor_cpu_error=True))
+
+    from signnet_basisnet_tpu_torch.models import conv as conv_mod
+
+    @contextlib.contextmanager
+    def k1_widths():
+        """The row widths of the forward K1 calls while the block runs."""
+        seen = []
+        wrapped = conv_mod.spmm_tiled
+
+        def spy(x, *a, **kw):
+            seen.append(x.shape[1])
+            return wrapped(x, *a, **kw)
+
+        conv_mod.spmm_tiled = spy
+        try:
+            yield seen
+        finally:
+            conv_mod.spmm_tiled = wrapped
+
+    def run_path(tag, cfg, want_per_step, widths=None):
+        """train_zinc.run of `cfg` with every counter at 0 just before it,
+        read just after: each kernel's launches against want_per_step
+        (kernel -> (per train step, per eval step)), the forward K1 widths
+        against `widths` (width -> per forward), finite metrics; the
+        step time of the last epoch (host clock) and peak memory."""
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with k1_widths() as seen:
+            res = run(cfg, device="cuda", log=lambda s: print("  " + s,
+                                                              flush=True))
+        torch.cuda.synchronize()
+        got = {"K1": spmm_tiled.launches, "K2": tiled.launches_fwd,
+               "K3": tiled.launches_bwd, "K4": gate.launches,
+               "K5": flat.launches}
+        want = {k: 0 for k in got}
+        for k, (tr, ev) in want_per_step.items():
+            want[k] = tr * res.train_steps + ev * res.eval_steps
+        print(f"  launches {got}; expected {want} for {res.train_steps} "
+              f"train and {res.eval_steps} eval steps", flush=True)
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got}, expected {want}")
+        if widths is not None:
+            fwd = res.train_steps + res.eval_steps
+            want_w = {f: n * fwd for f, n in widths.items()}
+            got_w = {f: seen.count(f) for f in set(seen)}
+            print(f"  forward K1 widths {got_w}, expected {want_w}",
+                  flush=True)
+            if got_w != want_w:
+                raise AssertionError(f"{tag}: K1 widths {got_w}")
+        h = res.history[-1]
+        if (not all(np.isfinite([r["train_loss"], r["val_mae"]]).all()
+                    for r in res.history)
+                or not np.isfinite([res.val_mae, res.test_mae]).all()):
+            raise AssertionError(f"{tag}: non-finite metrics {res.history}")
+        if cfg.model.lap_method == "sign_flip":
+            print(f"  eval flips drawn {res.eval_flip_draws} for "
+                  f"{res.eval_steps} eval batches", flush=True)
+            if res.eval_flip_draws != res.eval_steps:
+                raise AssertionError(f"{tag}: eval generator drew "
+                                     f"{res.eval_flip_draws} times")
+        step_ms = h["train_time"] / h["train_steps"] * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"  {tag} step time (epoch {h['epoch'] + 1}, "
+              f"{h['train_steps']} steps, host clock to the last loss on "
+              f"the host): {step_ms:.2f} ms; peak memory {peak:.0f} MiB; "
+              f"val_mae {res.val_mae:.4f} test_mae {res.test_mae:.4f}",
+              flush=True)
+        record[f"{tag}_run"] = dict(
+            step_ms=step_ms, peak_mib=peak, launches=got,
+            train_steps=res.train_steps, eval_steps=res.eval_steps,
+            val_mae=res.val_mae, test_mae=res.test_mae,
+            history=res.history)
+        return res
+
+    # the masked GatedGCN: as the GatedGCN SignNet path, 16 K4 a step, the
+    # phi's K1 8 forward (1 at F = 74, 7 at 4958) and 7 transposed
+    gm_layers, gm_phi = gmcfg.model.n_layers, gmcfg.model.sign_inv_layers
+    gm_widths = {2 * k_full: 1,
+                 2 * k_full * gmcfg.model.hidden_dim: gm_phi - 1}
+    tm_layers = tmcfg.model.n_layers
+    for tag, cfg, want in (
+            ("masked_gatedgcn_f32", gmcfg,
+             {"K4": (gm_layers, gm_layers),
+              "K1": (2 * gm_phi - 1, gm_phi)}),
+            ("masked_gatedgcn_bf16", masked_cfg(
+                MASKED_GATEDGCN_CONFIG, ["data.agg_backend", "pallas_tile",
+                                         "train.compute_dtype",
+                                         "bfloat16"]),
+             {"K4": (gm_layers, gm_layers),
+              "K1": (2 * gm_phi - 1, gm_phi)}),
+            ("masked_transformer_f32", tmcfg,
+             {"K2": (tm_layers, tm_layers), "K3": (tm_layers, 0)})):
+        with Phase(f"10c {tag} (train_zinc, {cfg.data.agg_backend})"):
+            cfg.train.epochs = 2
+            cfg.name = tag
+            run_path(tag, cfg, want,
+                     gm_widths if "gatedgcn" in tag else {})
+
+    # --------------------------------------------------------------- 11
+    tiled_over = ["data.tile", "256", "data.agg_backend", "pallas_tile"]
+    for name, extra, want, widths in (
+            ("gatedgcn_zinc_lappe", tiled_over, {"K4": (16, 16)}, {}),
+            ("gatedgcn_zinc_lappe_abs", tiled_over, {"K4": (16, 16)}, {}),
+            ("gatedgcn_zinc_lappe_canonical", tiled_over, {"K4": (16, 16)},
+             {}),
+            ("gin_zinc_lappe", tiled_over, {"K1": (32, 16)}, {122: 16}),
+            ("transformer_zinc_lappe",
+             ["data.tile", "256", "data.agg_backend", "tile_dense"],
+             {"K2": (8, 8), "K3": (8, 0)}, {}),
+            ("gin_zinc_rwpe_lspe", tiled_over, {"K1": (32, 16)}, {95: 16}),
+            ("gatedgcn_zinc_rwpe_lspe", tiled_over, {}, {})):
+        with Phase(f"11 {name} (train_zinc, published widths)"):
+            cfg = load_config(os.path.join("configs", f"{name}.json"),
+                              extra + [
+                "data.synth_train", "256", "data.synth_eval", "128",
+                "train.epochs", "2", "train.print_epoch_interval", "1",
+                "out_dir", OUT_DIR, "name", name])
+            run_path(name, cfg, want, widths)
+            if name == "transformer_zinc_lappe":
+                d = cfg.model.hidden_dim // cfg.model.num_heads
+                print(f"  attention head width D = {d}", flush=True)
+                if d != 10:
+                    raise AssertionError(f"D = {d}")
 
     kernels = [kern, kern2, kern3, kern4, kern5]
     record["kernels"] = kernels

@@ -12,7 +12,9 @@ only the raw molecule dicts (atom types, the dense bond matrix, the
 target) are read.  `synthetic_zinc` draws molecule-like graphs with ZINC's
 statistics (n in [9, 37], ~2.2 average degree, 28 atom / 4 bond types) and
 a graph-computable regression target; from the same seed it yields the
-same graphs as the JAX package.  `load_zinc` reads the pickles where they
+same graphs as the JAX package.  The positional encodings are attached in
+place: `add_lap_pe` (k eigenvectors), `add_full_evd` (all n) and
+`add_rwpe` (the random-walk PE).  `load_zinc` reads the pickles where they
 exist and falls back to the synthetic stand-in, as the JAX loader does.
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import csv
 import os
 import pickle
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -174,6 +176,27 @@ def add_lap_pe(graphs: List[dict], k: int, tau: float = 0.0) -> None:
                                         tau=tau)
         g["eigvals"] = vals
         g["eigvecs"] = vecs
+
+
+def add_full_evd(graphs: List[dict], normalization: Optional[str] = None
+                 ) -> None:
+    """Attach all n eigenpairs in place (PyG EVDTransform semantics,
+    computed once per graph)."""
+    for g in graphs:
+        n = int(np.asarray(g["node_feat"]).shape[0])
+        vals, vecs = spectral.full_evd_np(g["senders"], g["receivers"], n,
+                                          normalization=normalization)
+        g["eigvals"] = vals
+        g["eigvecs"] = vecs
+
+
+def add_rwpe(graphs: List[dict], k: int) -> None:
+    """Attach the k-step random-walk PE in place, as `eigvecs` (with zero
+    `eigvals`), where the packer carries it."""
+    for g in graphs:
+        n = int(np.asarray(g["node_feat"]).shape[0])
+        g["eigvecs"] = spectral.rwpe_np(g["senders"], g["receivers"], n, k)
+        g["eigvals"] = np.zeros(k, np.float32)
 
 
 def load_zinc(data_dir: str = "data/zinc", subset: bool = True,

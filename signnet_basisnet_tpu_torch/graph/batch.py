@@ -74,6 +74,19 @@ class GraphBatch:
     def num_graphs(self) -> int:
         return self.graph_mask.shape[0]
 
+    def nodes_per_graph(self) -> torch.Tensor:
+        """[N] float32: the node count of the graph owning each node, at
+        least 1 (padding nodes belong to the padding graph slot, whose
+        count of 0 becomes 1)."""
+        counts = torch.clamp(self.n_node, min=1).to(torch.float32)
+        return counts[self.graph_id.long()]
+
+    def in_degrees(self) -> torch.Tensor:
+        """[N] in-degree of each node over the real edges, in the edge
+        mask's type."""
+        out = self.edge_mask.new_zeros(self.num_nodes)
+        return out.index_add_(0, self.receivers.long(), self.edge_mask)
+
     def _map(self, fn) -> "GraphBatch":
         kw = {}
         for f in dataclasses.fields(self):

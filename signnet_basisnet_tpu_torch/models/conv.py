@@ -2,11 +2,11 @@
 Transformer paths.
 
 Port of signnet_basisnet_tpu/models/conv.py:26-58,104-125 (`neighbor_sum`,
-`node_mask_like`, `pool_any`, `GINConv`), :312-381 (`GatedGCNLayer`) and
-:682-811 (`GraphTransformerAttention`, `GraphTransformerLayer`, sparse
-path).  The other layers of that file (GINE, GCN, GAT, GatedGCN-LSPE, PNA)
-and the full-graph transformer are later slices of the port (ROADMAP.md
-queue 1).
+`node_mask_like`, `pool_any`, `GINConv`), :312-381 (`GatedGCNLayer`),
+:384-447 (`GatedGCNLSPELayer`) and :682-811 (`GraphTransformerAttention`,
+`GraphTransformerLayer`, sparse path).  The other layers of that file
+(GINE, GCN, GAT, PNA) and the full-graph transformer are later slices of
+the port (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -139,6 +139,66 @@ class GatedGCNLayer(nn.Module):
             h_new = h_in + h_new
             e_new = e_in + e_new
         return self.drop(h_new), self.drop(e_new)
+
+
+class GatedGCNLSPELayer(nn.Module):
+    """GatedGCN layer with learnable structural and positional channels
+    (LSPE, Dwivedi et al. eqs. 9-11), as the JAX package completes the
+    reference's undefined class:
+
+        ehat_ij = B1 h_i + B2 h_j + B3 e_ij ;  eta = sigma(ehat)
+        h_i' = h_i + ReLU(BN(A1 [h_i||p_i] + sum_j eta A2 [h_j||p_j]
+                               / (sum_j eta + 1e-6)))
+        p_i' = p_i + tanh(C1 p_i + sum_j eta C2 p_j / (sum_j eta + 1e-6))
+        e_ij' = e_ij + ReLU(BN(ehat_ij))
+
+    then dropout on h and e.  The sums go through `graph.segment.
+    segment_sum` (the one-hot backend where that is set), not the fused
+    gate kernel: the JAX layer engages none.  Submodule names are the flax
+    ones: `A1 A2 B1 B2 B3 C1 C2`, `bn_h`, `bn_e`.
+    """
+
+    def __init__(self, in_dim: int, features: int, batch_norm: bool = True,
+                 residual: bool = True, dropout: float = 0.0, rng=None):
+        super().__init__()
+        self.drop = Dropout(dropout, rng)
+        self.batch_norm = batch_norm
+        self.residual = residual
+        for name in ("A1", "A2"):
+            self.add_module(name, Linear(2 * in_dim, features))
+        for name in ("B1", "B2", "B3", "C1", "C2"):
+            self.add_module(name, Linear(in_dim, features))
+        if batch_norm:
+            self.bn_h = MaskedBatchNorm(features)
+            self.bn_e = MaskedBatchNorm(features)
+
+    def forward(self, gb, h, p, e):
+        if "mp_send_idx" in gb.extras:
+            raise NotImplementedError(
+                "the model-parallel halo exchange is not ported yet "
+                "(ROADMAP.md queue 1 item 20)")
+        h_in, p_in, e_in = h, p, e
+        hp = torch.cat([h, p], dim=-1)
+        src, dst = gb.senders.long(), gb.receivers.long()
+        n = gb.num_nodes
+        A2hp, C2p = self.A2(hp), self.C2(p)
+        e_new = self.B1(h)[dst] + self.B2(h)[src] + self.B3(e)
+        eta = torch.sigmoid(e_new) * gb.edge_mask[:, None]
+        sum_eta = seg.segment_sum(eta, gb.receivers, n) + 1e-6
+        h_new = self.A1(hp) + seg.segment_sum(
+            eta * A2hp[src], gb.receivers, n) / sum_eta
+        p_new = self.C1(p) + seg.segment_sum(
+            eta * C2p[src], gb.receivers, n) / sum_eta
+        if self.batch_norm:
+            h_new = self.bn_h(h_new, mask=gb.node_mask)
+            e_new = self.bn_e(e_new, mask=gb.edge_mask)
+        h_new, e_new = torch.relu(h_new), torch.relu(e_new)
+        p_new = torch.tanh(p_new)
+        if self.residual and h_in.shape == h_new.shape:
+            h_new = h_in + h_new
+            e_new = e_in + e_new
+            p_new = p_in + p_new
+        return self.drop(h_new), p_new, self.drop(e_new)
 
 
 class GraphTransformerAttention(nn.Module):

@@ -1,8 +1,9 @@
-"""SignNet's fixed-k DeepSigns encoder with a GIN phi.
+"""SignNet's DeepSigns encoders with a GIN phi.
 
 Port of signnet_basisnet_tpu/models/signnet.py:38-48 (`sign_fuse`,
-`sign_unfuse`), :137-182 (`_KChannelGNN`, gin kind) and :185-210
-(`GINDeepSigns`): f(v_1..v_k) = rho([phi(v_i) + phi(-v_i)]_i), with the
+`sign_unfuse`), :137-182 (`_KChannelGNN`, gin kind), :185-210
+(`GINDeepSigns`, fixed k) and :213-239 (`MaskedGINDeepSigns`, all
+eigenvectors): f(v_1..v_k) = rho([phi(v_i) + phi(-v_i)]_i), with the
 (+v, -v) pair fused along the k axis into one phi call over [N, 2k, D].
 """
 from __future__ import annotations
@@ -77,5 +78,30 @@ class GINDeepSigns(nn.Module):
         x2, _ = sign_fuse(x)
         x = sign_unfuse(self.enc(gb, x2))               # N K phi_out
         x = x.reshape(x.shape[:-2] + (-1,))
+        # rho's BN runs over every row, padding included, as in flax
+        return self.rho(x)                              # N K
+
+
+class MaskedGINDeepSigns(nn.Module):
+    """Variable-k DeepSigns over a graph's full eigendecomposition: the GIN
+    phi over the k padded eigenvector slots, the slots i >= n_g of a graph
+    with n_g nodes masked out, a sum over k, then the rho MLP -> [N, k]."""
+
+    def __init__(self, hidden: int, phi_out: int, num_layers: int, k: int,
+                 use_bn: bool = False, dropout: float = 0.0, rng=None):
+        super().__init__()
+        self.enc = KChannelGNN(1, hidden, phi_out, num_layers, use_bn=use_bn,
+                               dropout=dropout, rng=rng)
+        self.rho = MLP(phi_out, hidden, k, num_layers=num_layers,
+                       use_bn=use_bn, dropout=dropout, rng=rng)
+
+    def forward(self, gb, eigvecs):
+        x = eigvecs[..., None]                          # N K 1
+        x2, _ = sign_fuse(x)
+        x = sign_unfuse(self.enc(gb, x2))               # N K phi_out
+        K = x.shape[-2]
+        slots = torch.arange(K, device=x.device)
+        kmask = (slots < gb.nodes_per_graph()[:, None]).to(x.dtype)
+        x = (x * kmask[..., None]).sum(dim=-2)          # N phi_out
         # rho's BN runs over every row, padding included, as in flax
         return self.rho(x)                              # N K

@@ -1,14 +1,24 @@
 """ZINC graph-regression nets: GatedGCNNet, GINNet and TransformerNet with
-their SignNet PE encoder.
+their PE encoders.
 
-Port of signnet_basisnet_tpu/models/zinc_models.py:67-166 (`_Base`:
-`sign_inv_module`, `embed_inputs`, `readout_head`), :169-203 (`GatedGCNNet`
-without its LSPE branch), :206-231 (`GINNet`) and :298-316
-(`TransformerNet`, sparse path).  Signature:
-``model(gb, pos_enc) -> [G]`` scores.  Submodule names follow the flax ones
+Port of signnet_basisnet_tpu/models/zinc_models.py:28-64 (`lapeig_loss`,
+`normalize_p`), :67-166 (`_Base`: `sign_inv_module`, `embed_inputs`,
+`readout_head`), :169-203 (`GatedGCNNet`, its LSPE branch included),
+:206-231 (`GINNet`, likewise) and :298-316 (`TransformerNet`, sparse
+path).  Signature: ``model(gb, pos_enc) -> [G]`` scores; GIN and GatedGCN also
+return the LSPE positional channel p, as ``(scores, p)``, with
+``return_p=True`` (p is None off the LSPE path).  PE: `pe_init` in {none, lap_pe, rand_walk};
+with `rand_walk`, or `use_lspe` on GIN and GatedGCN, the embedded PE p
+stays apart from h, GatedGCN updates it in its GatedGCN-LSPE layers, and
+both nets merge it after the last layer (`p_out`, `normalize_p`, `Whp`
+over [h || p]).  Submodule names follow the flax ones
 (`embedding_h`, `embedding_p`, `embedding_hp`, `embedding_e`,
 `sign_inv_net`, `layer_i` with `layer_i.mlp` for flax's `mlp_i`,
-`mlp_readout`), so the weight bridge (bridge.py) is a name mapping.
+`p_out`, `Whp`, `mlp_readout`), so the weight bridge (bridge.py) is a name
+mapping.  With lap_method `sign_flip` the net also owns the generators its
+flips draw from: `flip_rng` (train steps, seeded from `seed`) and
+`eval_flip_rng` (eval batches, seeded from `seed + 10007`, the JAX
+`fit`'s eval key).
 Dropout (`dropout`, `in_feat_dropout`) is applied where the JAX nets apply
 it, the SignNet phi and rho included, drawing from the model's
 `dropout_rng`, a generator seeded from `seed` (nn/dropout.py).
@@ -24,8 +34,44 @@ from torch import nn
 from ..nn.dropout import Dropout, DropoutRNG
 from ..nn.init import Embedding, Linear, init_parameters
 from ..nn.mlp import MLP, MLPReadout
-from .conv import GatedGCNLayer, GINConv, GraphTransformerLayer, pool_any
-from .signnet import GINDeepSigns
+from ..graph import segment as seg
+from .conv import (GatedGCNLayer, GatedGCNLSPELayer, GINConv,
+                   GraphTransformerLayer, pool_any)
+from .signnet import GINDeepSigns, MaskedGINDeepSigns
+
+# the JAX fit's eval key is PRNGKey(seed + 10007)
+EVAL_FLIP_SEED_OFFSET = 10007
+
+
+def lapeig_loss(gb, p):
+    """The LSPE Laplacian-eigenvector auxiliary terms, batched on the
+    device: (trace(p^T L p), sum over real graphs of ||P^T P - I||_F^2),
+    with L the degree-normalised Laplacian over the real edges (degrees
+    clipped at 1)."""
+    deg = torch.clamp(gb.in_degrees(), min=1.0)
+    dis = deg ** -0.5
+    src, dst = gb.senders.long(), gb.receivers.long()
+    # trace(p^T L p) = sum_i |p_i|^2 - sum_e p_s.p_r / sqrt(d_s d_r)
+    tr = (p ** 2 * gb.node_mask[:, None]).sum()
+    cross = ((p[src] * p[dst]).sum(-1) * dis[src] * dis[dst]
+             * gb.edge_mask).sum()
+    outer = p[:, :, None] * p[:, None, :] * gb.node_mask[:, None, None]
+    ptp = seg.segment_sum(outer, gb.graph_id, gb.num_graphs)    # G K K
+    eye = torch.eye(p.shape[1], dtype=p.dtype, device=p.device)[None]
+    ortho = (((ptp - eye) ** 2).sum((-2, -1)) * gb.graph_mask).sum()
+    return tr - cross, ortho
+
+
+def normalize_p(gb, p):
+    """LSPE's positional post-processing: centre p per graph, then divide
+    by its per-graph column L2 norm, with 1e-12 inside the sqrt (a padding
+    graph's p is all zero, and the sqrt's gradient at 0 is NaN)."""
+    means = pool_any(gb, p, reduce="mean")
+    gid = gb.graph_id.long()
+    p = (p - means[gid]) * gb.node_mask[:, None]
+    norms = torch.sqrt(pool_any(gb, p ** 2 * gb.node_mask[:, None],
+                                reduce="sum") + 1e-12)
+    return p / norms[gid]
 
 
 class ZincNet(nn.Module):
@@ -47,11 +93,7 @@ class ZincNet(nn.Module):
         super().__init__()
         # max_nodes sizes the transformer phi only
         del max_nodes
-        if use_lspe or pe_init == "rand_walk":
-            raise NotImplementedError(
-                "LSPE / rand_walk PE are not ported yet (ROADMAP.md queue 1 "
-                "item 15)")
-        if pe_init not in ("none", "lap_pe"):
+        if pe_init not in ("none", "lap_pe", "rand_walk"):
             raise ValueError(f"unknown pe_init {pe_init!r}")
         if remat:
             raise NotImplementedError(
@@ -60,44 +102,78 @@ class ZincNet(nn.Module):
         self.pe_init = pe_init
         self.lap_method = lap_method
         self.pe_aggregate = pe_aggregate
+        self.use_lspe = use_lspe
+        self.pos_enc_dim = pos_enc_dim
         self.edge_feat = edge_feat
         self.dropout = dropout
         self.dropout_rng = DropoutRNG(seed)
+        if lap_method == "sign_flip":
+            self.flip_rng = DropoutRNG(seed)
+            self.eval_flip_rng = DropoutRNG(seed + EVAL_FLIP_SEED_OFFSET)
         self.in_feat_drop = Dropout(in_feat_dropout, self.dropout_rng)
         self.embedding_h = Embedding(num_atom_type, hidden_dim)
-        if pe_init == "lap_pe":
-            if lap_method == "sign_inv":
+        if pe_init in ("lap_pe", "rand_walk"):
+            if pe_init == "lap_pe" and lap_method == "sign_inv":
                 self.sign_inv_net = sign_inv_module(
                     sign_inv_net, hidden_dim, phi_out_dim, sign_inv_layers,
                     pos_enc_dim, dropout, self.dropout_rng)
             self.embedding_p = Linear(pos_enc_dim, hidden_dim)
-            if pe_aggregate == "concat":
+            if (pe_init == "lap_pe" and not use_lspe
+                    and pe_aggregate == "concat"):
                 self.embedding_hp = Linear(2 * hidden_dim, hidden_dim)
         self.embedding_e = (Embedding(num_bond_type, hidden_dim) if edge_feat
                             else Linear(1, hidden_dim))
         self.mlp_readout = MLPReadout(readout_dim, 1)
 
+    @property
+    def lspe(self) -> bool:
+        """Whether the embedded PE stays apart from h, to be merged after
+        the last layer (LSPE)."""
+        return self.pe_init != "none" and (self.use_lspe
+                                           or self.pe_init == "rand_walk")
+
     def embed_inputs(self, gb, pos_enc):
-        """(h [N, hidden], e [E, hidden]): atom embedding merged with the PE,
-        and the bond embedding (a Linear of ones without edge features)."""
+        """(h [N, hidden], p, e [E, hidden]): the atom embedding, merged
+        with the embedded PE under lap_pe without LSPE (p is then None),
+        else beside it as p [N, hidden]; and the bond embedding (a Linear
+        of ones without edge features)."""
         codes = gb.node_feat
         if codes.dim() == 2:
             codes = codes[:, 0]
         h = self.in_feat_drop(self.embedding_h(codes))
-        if self.pe_init == "lap_pe" and pos_enc is not None:
-            if self.lap_method == "sign_inv":
+        p = None
+        if self.pe_init in ("lap_pe", "rand_walk") and pos_enc is not None:
+            if self.pe_init == "lap_pe" and self.lap_method == "sign_inv":
                 pos_enc = self.sign_inv_net(gb, pos_enc)
             p = self.embedding_p(pos_enc)
+        if self.pe_init == "lap_pe" and p is not None and not self.use_lspe:
             if self.pe_aggregate == "concat":
                 h = self.embedding_hp(torch.cat([h, p], dim=-1))
             else:
                 h = h + p
+            p = None
         if self.edge_feat:
             e = self.embedding_e(gb.edge_feat)
         else:
             e = self.embedding_e(torch.ones((gb.num_edges, 1),
                                             device=gb.senders.device))
-        return h, e
+        return h, p, e
+
+    def add_lspe_merge(self, p_dim: int, out_dim: int):
+        """The LSPE merge's layers: `p_out` over p [N, p_dim] and `Whp` over
+        [h || p]."""
+        if self.lspe:
+            self.p_out = Linear(p_dim, self.pos_enc_dim)
+            self.Whp = Linear(out_dim + self.pos_enc_dim, out_dim)
+
+    def merge_p(self, gb, h, p):
+        """h merged with the normalised positional channel after the last
+        layer: (Whp [h || normalize_p(p_out p)], that p); without LSPE,
+        (h, None)."""
+        if not (self.lspe and p is not None):
+            return h, None
+        p = normalize_p(gb, self.p_out(p))
+        return self.Whp(torch.cat([h, p], dim=-1)), p
 
     def readout_head(self, gb, h):
         hg = pool_any(gb, h, reduce=self.readout)
@@ -107,8 +183,8 @@ class ZincNet(nn.Module):
 class GatedGCNNet(ZincNet):
     """GatedGCN layers of width hidden_dim (the last one out_dim), on the
     node and the bond embeddings.  The ZINC net disables graph norm in its
-    layers, as the JAX net does.  The LSPE branch is refused by `ZincNet`
-    (ROADMAP.md queue 1 item 15)."""
+    layers, as the JAX net does.  Under LSPE the layers are GatedGCN-LSPE
+    layers, which update p too (no fused gate kernel runs there)."""
 
     def __init__(self, hidden_dim: int = 95, out_dim: int = 95,
                  n_layers: int = 16, batch_norm: bool = True,
@@ -118,17 +194,34 @@ class GatedGCNNet(ZincNet):
         self.n_layers = n_layers
         for i in range(n_layers):
             out = hidden_dim if i < n_layers - 1 else out_dim
-            self.add_module(f"layer_{i}", GatedGCNLayer(
-                hidden_dim, out, batch_norm=batch_norm, residual=residual,
-                graph_norm=False, dropout=self.dropout,
-                rng=self.dropout_rng))
+            if self.lspe:
+                layer = GatedGCNLSPELayer(
+                    hidden_dim, out, batch_norm=batch_norm,
+                    residual=residual, dropout=self.dropout,
+                    rng=self.dropout_rng)
+            else:
+                layer = GatedGCNLayer(
+                    hidden_dim, out, batch_norm=batch_norm,
+                    residual=residual, graph_norm=False,
+                    dropout=self.dropout, rng=self.dropout_rng)
+            self.add_module(f"layer_{i}", layer)
+        # the LSPE layers carry p at their width
+        self.add_lspe_merge(out_dim, out_dim)
         init_parameters(self, torch.Generator().manual_seed(seed))
 
-    def forward(self, gb, pos_enc=None):
-        h, e = self.embed_inputs(gb, pos_enc)
+    def forward(self, gb, pos_enc=None, return_p: bool = False):
+        h, p, e = self.embed_inputs(gb, pos_enc)
         for i in range(self.n_layers):
-            h, e = getattr(self, f"layer_{i}")(gb, h, e)
-        return self.readout_head(gb, h)
+            layer = getattr(self, f"layer_{i}")
+            if isinstance(layer, GatedGCNLSPELayer):
+                if p is None:
+                    raise ValueError("the LSPE layers need a PE")
+                h, p, e = layer(gb, h, p, e)
+            else:
+                h, e = layer(gb, h, e)
+        h, p = self.merge_p(gb, h, p)
+        out = self.readout_head(gb, h)
+        return (out, p) if return_p else out
 
 
 class GINNet(ZincNet):
@@ -146,13 +239,17 @@ class GINNet(ZincNet):
                 hidden_dim, hidden_dim, out, num_layers=2,
                 use_bn=batch_norm, dropout=self.dropout,
                 rng=self.dropout_rng)))
+        # the GIN layers leave p at the embedding's width
+        self.add_lspe_merge(hidden_dim, out_dim)
         init_parameters(self, torch.Generator().manual_seed(seed))
 
-    def forward(self, gb, pos_enc=None):
-        h, _ = self.embed_inputs(gb, pos_enc)
+    def forward(self, gb, pos_enc=None, return_p: bool = False):
+        h, p, _ = self.embed_inputs(gb, pos_enc)
         for i in range(self.n_layers):
             h = getattr(self, f"layer_{i}")(gb, h)
-        return self.readout_head(gb, h)
+        h, p = self.merge_p(gb, h, p)
+        out = self.readout_head(gb, h)
+        return (out, p) if return_p else out
 
 
 class TransformerNet(ZincNet):
@@ -182,7 +279,7 @@ class TransformerNet(ZincNet):
         init_parameters(self, torch.Generator().manual_seed(seed))
 
     def forward(self, gb, pos_enc=None):
-        h, e = self.embed_inputs(gb, pos_enc)
+        h, _, e = self.embed_inputs(gb, pos_enc)
         for i in range(self.n_layers):
             h = getattr(self, f"layer_{i}")(gb, h, e)
         return self.readout_head(gb, h)
@@ -193,11 +290,13 @@ def sign_inv_module(kind: str, hidden: int, phi_out: int, num_layers: int,
     """sign_inv_net factory.  use_bn=True always, as the reference hardcodes
     it for every sign_inv variant (without BN the 8-layer sum-aggregation phi
     produces unbounded activations)."""
+    kw = dict(hidden=hidden, phi_out=phi_out, num_layers=num_layers, k=k,
+              use_bn=True, dropout=dropout, rng=rng)
     if kind == "gin":
-        return GINDeepSigns(hidden=hidden, phi_out=phi_out,
-                            num_layers=num_layers, k=k, use_bn=True,
-                            dropout=dropout, rng=rng)
-    items = {"masked_gin": 12, "gcn": 14, "gat": 14, "transformer": 16}
+        return GINDeepSigns(**kw)
+    if kind == "masked_gin":
+        return MaskedGINDeepSigns(**kw)
+    items = {"gcn": 14, "gat": 14, "transformer": 16}
     if kind in items:
         raise NotImplementedError(
             f"sign_inv_net {kind!r} is not ported yet (ROADMAP.md queue 1 "

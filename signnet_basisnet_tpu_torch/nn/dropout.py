@@ -13,18 +13,21 @@ that each replay draws a fresh mask.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 
 class DropoutRNG:
-    """The seeded generator a model's dropout layers share."""
+    """A seeded generator, made on the device of its first use: the one a
+    model's dropout layers share, and each of the sign-flip generators
+    (models/pe.py: `sign_flip`, which counts its draws in `draws`)."""
 
     def __init__(self, seed: int):
         self.seed = int(seed)
         self.generator: Optional[torch.Generator] = None
+        self.draws = 0
 
     def on(self, device: torch.device) -> torch.Generator:
         """The generator on `device`, seeded anew if it lived elsewhere."""
@@ -32,6 +35,13 @@ class DropoutRNG:
             self.generator = torch.Generator(device=device)
             self.generator.manual_seed(self.seed)
         return self.generator
+
+
+def model_rngs(model: nn.Module) -> Dict[str, DropoutRNG]:
+    """The seeded generators `model` owns, by attribute name
+    (`dropout_rng`, and under sign flips `flip_rng` and `eval_flip_rng`)."""
+    return {k: v for k, v in vars(model).items()
+            if isinstance(v, DropoutRNG)}
 
 
 class Dropout(nn.Module):

@@ -1,16 +1,19 @@
 """Host-side eigendecomposition for Laplacian PE (numpy).
 
-Port of the numpy half of signnet_basisnet_tpu/spectral/eigh.py.  Eigenvector
+Port of the numpy half of signnet_basisnet_tpu/spectral/eigh.py: the
+fixed-k Laplacian PE (`lap_pe_np`), all n eigenpairs (`full_evd_np`) and the
+random-walk PE (`rwpe_np`).  Eigenvector
 signs are fixed deterministically (the entry of largest magnitude is made
 positive) so preprocessing is reproducible; SignNet is sign invariant anyway.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-from .laplacian import adjacency_dense_np, sym_laplacian_np
+from .laplacian import (adjacency_dense_np, sym_laplacian_np,
+                        unnormalized_laplacian_np)
 
 
 def canonical_sign_np(V: np.ndarray) -> np.ndarray:
@@ -46,3 +49,31 @@ def lap_pe_np(senders, receivers, n, k, tau: float = 0.0,
     out_vals[:len(vals)] = vals
     out_vecs[:, :vecs.shape[1]] = vecs
     return out_vals, out_vecs
+
+
+def full_evd_np(senders, receivers, n, normalization: Optional[str] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """All n eigenpairs (PyG EVDTransform semantics): of L = D - A with
+    `normalization` None, of I - D^-1/2 A D^-1/2 (degrees not clipped)
+    with 'sym'."""
+    A = adjacency_dense_np(senders, receivers, n)
+    if normalization == "sym":
+        L = sym_laplacian_np(A, clip_degree=False)
+    else:
+        L = unnormalized_laplacian_np(A)
+    return eigh_np(L)
+
+
+def rwpe_np(senders, receivers, n, k) -> np.ndarray:
+    """Random-walk PE [n, k]: the diagonals of (A D^-1)^p for p = 1..k,
+    degrees clipped at 1."""
+    A = adjacency_dense_np(senders, receivers, n)
+    d_inv = 1.0 / np.clip(A.sum(axis=1), 1.0, None)
+    RW = A * d_inv[None, :]
+    out = np.zeros((n, k), np.float32)
+    M = RW.copy()
+    for p in range(k):
+        out[:, p] = np.diag(M)
+        if p + 1 < k:
+            M = M @ RW
+    return out

@@ -6,14 +6,27 @@
 Port of the single-device path of signnet_basisnet_tpu/train_zinc.py: PE
 preprocessing -> model -> Adam + plateau LR -> epoch loop with val/test eval.
 The JAX package's configs are read as they are.  The run is on `cuda` unless
-`--device cpu` is given.  The nets are GIN, GatedGCN and Transformer.  The
-aggregation backend is the config's (`data.agg_backend`): with `pallas_tile`
-on a tiled batch (`data.tile`) the GIN layers and the SignNet phi run the
-tile-local SpMM kernel on the card and the GatedGCN layers the fused gate
-kernel; with `pallas_tile` or `tile_dense` the Transformer layers run the
-fused attention kernels there.  Their plain versions run only where the
-tensors lie on the CPU.  The shipped GatedGCN configs set neither option:
-add `data.tile 256 data.agg_backend pallas_tile` to run its kernels.
+`--device cpu` is given.  The nets are GIN, GatedGCN and Transformer, with
+the PE paths of the JAX train_zinc: the fixed-k SignNet (`sign_inv_net gin`)
+and the masked all-eigenvector one (`masked_gin`, on `data.pe_mode
+full_evd`), the sign baselines (`lap_method` sign_flip, abs_val,
+canonical, canonical_ref), the random-walk PE (`data.pe_mode rwpe`) and
+LSPE (`model.use_lspe`, GIN and GatedGCN only, ignored for the other nets
+as the JAX train_zinc ignores it) with the Laplacian-eigvec loss
+(`model.use_lapeig_loss`, only with LSPE).  The shipped `*_rwpe_lspe`
+configs pair `pe_init rand_walk` with `pe_mode lap_pe`, so their nets
+embed the Laplacian eigenvectors as their random-walk PE: kept as the JAX
+train_zinc runs them.  Under `sign_flip` the eval batches flip too unless
+`model.eval_sign_flip` is false.  The aggregation backend is the config's
+(`data.agg_backend`): with `pallas_tile` on a tiled batch (`data.tile`)
+the GIN layers and the SignNet phi run the tile-local SpMM kernel on the
+card and the GatedGCN layers the fused gate kernel (the GatedGCN-LSPE
+layers run none); with `pallas_tile` or `tile_dense` the Transformer
+layers run the fused attention kernels there.  Their plain versions run
+only where the tensors lie on the CPU.  The shipped GatedGCN configs but
+the masked one set neither option, nor do the LapPE and LSPE configs: add
+`data.tile 256 data.agg_backend pallas_tile` (the Transformer's:
+`data.tile 256 data.agg_backend tile_dense`) to run their kernels.
 
 As in the JAX train_zinc: the real ZINC pickles are read where they exist under
 `data.data_dir` (`data.subset` picks the `.index` subsets), else the
@@ -25,9 +38,9 @@ batch` refuses them; `train.matmul_precision` maps to torch's float32
 matmul precision for the run (`MATMUL_PRECISION`).  The steps stay eager
 (a captured step is training/train.py: `capture_train_step`).
 
-Not ported yet, and refused: train.mp > 1, LSPE and the Laplacian-eigvec
-loss, the non-lap_pe PE modes, the full-graph transformer (ROADMAP.md
-queue 1).
+Not ported yet, and refused: train.mp > 1, the PNA and GAT nets, the gcn,
+gat and transformer SignNet phis, remat and the full-graph transformer
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -39,13 +52,13 @@ import time
 
 import torch
 
-from .data import add_lap_pe, choose_budgets, iterate_graphbatches, \
-    load_zinc, pack_batches
+from .data import (add_full_evd, add_lap_pe, add_rwpe, choose_budgets,
+                   iterate_graphbatches, load_zinc, pack_batches)
 from .graph import from_arrays
 from .graph import segment as seg
 from .models import gnn_model
 from .training import (Checkpointer, adam, build_steps, count_params, fit,
-                       load_config, make_zinc_predict)
+                       load_config, make_lapeig_loss_fn, make_zinc_predict)
 from .utils import RunLogger
 
 # train.matmul_precision (the names jax.default_matmul_precision takes, as
@@ -84,13 +97,14 @@ def prepare_data(cfg):
                              synth_sizes=(cfg.data.synth_train,
                                           cfg.data.synth_eval,
                                           cfg.data.synth_eval))
-    if cfg.data.pe_mode == "lap_pe":
-        for graphs in splits.values():
-            add_lap_pe(graphs, cfg.model.pos_enc_dim)
-    elif cfg.data.pe_mode != "none":
-        raise NotImplementedError(
-            f"data.pe_mode {cfg.data.pe_mode!r} is not ported yet "
-            "(ROADMAP.md queue 1 items 12 and 15)")
+    k = cfg.model.pos_enc_dim
+    for graphs in splits.values():
+        if cfg.data.pe_mode == "lap_pe":
+            add_lap_pe(graphs, k)
+        elif cfg.data.pe_mode == "full_evd":
+            add_full_evd(graphs, normalization=cfg.data.evd_normalization)
+        elif cfg.data.pe_mode == "rwpe":
+            add_rwpe(graphs, k)
     return splits, real
 
 
@@ -98,9 +112,6 @@ def _refuse_unported(cfg):
     if cfg.train.mp > 1 or cfg.train.num_microbatches > 1:
         raise NotImplementedError(
             "parallel training is not ported yet (ROADMAP.md queue 1 item 20)")
-    if cfg.model.use_lspe or cfg.model.use_lapeig_loss:
-        raise NotImplementedError(
-            "LSPE is not ported yet (ROADMAP.md queue 1 item 15)")
     if cfg.train.eval_bn_mode == "batch" and (
             cfg.model.dropout > 0 or cfg.model.in_feat_dropout > 0):
         # batch-statistics eval runs the forward in training mode, which
@@ -135,6 +146,8 @@ def _run(cfg, device, log):
     nb, eb, gb_cnt = choose_budgets(splits["train"], cfg.train.batch_size,
                                     slack=cfg.data.batch_slack,
                                     align=cfg.data.batch_align, tile=tile)
+    # one K for every batch, full-EVD mode included: pos_enc_dim is the
+    # dataset's largest node count there (37 for ZINC)
     k = cfg.model.pos_enc_dim
     make_batches = lambda graphs: [
         from_arrays(a).to(device) for a in pack_batches(
@@ -145,9 +158,13 @@ def _run(cfg, device, log):
         + (f", tiles of {tile}" if tile else ""))
 
     m = cfg.model
-    extra = {}
+    # LSPE is for GIN and GatedGCN, and the Laplacian-eigvec loss only with
+    # it, as the JAX train_zinc gates them
+    use_lspe = m.use_lspe and m.model in ("GIN", "GatedGCN")
+    use_lapeig = m.use_lapeig_loss and use_lspe
+    extra = {"use_lspe": True} if use_lspe else {}
     if m.model == "Transformer":
-        extra = dict(num_heads=m.num_heads, full_graph=m.full_graph,
+        extra.update(num_heads=m.num_heads, full_graph=m.full_graph,
                      layer_norm=m.layer_norm)
     model = gnn_model(
         m.model, hidden_dim=m.hidden_dim, out_dim=m.out_dim,
@@ -164,10 +181,15 @@ def _run(cfg, device, log):
     cdtype = (getattr(torch, cfg.train.compute_dtype)
               if cfg.train.compute_dtype else None)
     predict = make_zinc_predict(model, lap_method=m.lap_method,
-                                compute_dtype=cdtype)
+                                compute_dtype=cdtype, return_p=use_lapeig)
     optimizer = adam(model.parameters(), cfg.train.weight_decay)
+    loss = {}
+    if use_lapeig:
+        loss["loss_fn"] = make_lapeig_loss_fn(m.alpha_loss, m.lambda_loss,
+                                              m.pos_enc_dim)
     train_step, eval_step = build_steps(model, predict, optimizer,
-                                        eval_bn_mode=cfg.train.eval_bn_mode)
+                                        eval_bn_mode=cfg.train.eval_bn_mode,
+                                        **loss)
     # a background thread packs (and pins) the next batches while the
     # device computes; each is copied to the device without blocking
     train_fn = lambda ep: iterate_graphbatches(
@@ -186,7 +208,9 @@ def _run(cfg, device, log):
         min_lr=cfg.train.min_lr, max_time_hours=cfg.train.max_time_hours,
         log_every=cfg.train.print_epoch_interval, logger=log,
         checkpointer=ckpt, resume=cfg.train.resume, model=model,
-        optimizer=optimizer)
+        optimizer=optimizer,
+        eval_flip_rng=(model.eval_flip_rng if m.lap_method == "sign_flip"
+                       and m.eval_sign_flip else None))
     log(f"FINAL: test_mae={result.test_mae:.4f} val_mae={result.val_mae:.4f} "
         f"epochs={result.epochs_run} time={(time.time() - t0) / 3600:.2f}h")
     log(f"FINAL_BEST_VAL: test_mae={result.best_val_test_mae:.4f} "

@@ -5,8 +5,10 @@ Counterpart of signnet_basisnet_tpu/training/checkpoint.py (orbax's
 temporary file and renamed into place, as ``<directory>/epoch_<n>.pt``.
 `train_state` gathers what the JAX checkpoint holds: the model's
 parameters and BatchNorm statistics (its state dict), the optimizer's
-state, the LR for the next epoch and the epoch, plus the dropout
-generator's state.
+state, the LR for the next epoch and the epoch, plus the state of every
+generator the net owns (`nn.dropout.model_rngs`: dropout's, and under
+sign flips the train and eval flip generators), so that a resumed run
+draws what an uninterrupted one would.
 
 A `capturable` optimizer keeps Adam's `step` and its LR on the card.  Its
 state dict loads into a capturable optimizer as it was saved (torch puts
@@ -23,6 +25,7 @@ from typing import List, Optional
 
 import torch
 
+from ..nn.dropout import model_rngs
 from .optim import set_lr
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -66,9 +69,9 @@ def train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 lr: float, epoch: int) -> dict:
     state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
              "lr": float(lr), "epoch": int(epoch)}
-    rng = getattr(model, "dropout_rng", None)
-    if rng is not None and rng.generator is not None:
-        state["dropout_rng"] = rng.generator.get_state()
+    for name, rng in model_rngs(model).items():
+        if rng.generator is not None:
+            state[name] = rng.generator.get_state()
     return state
 
 
@@ -83,7 +86,8 @@ def load_train_state(model: torch.nn.Module,
         if isinstance(lr, torch.Tensor):
             group["lr"] = lr
     set_lr(optimizer, state["lr"])
-    if "dropout_rng" in state:
-        dev = next(model.parameters()).device
-        model.dropout_rng.on(dev).set_state(state["dropout_rng"])
+    dev = next(model.parameters()).device
+    for name, rng in model_rngs(model).items():
+        if name in state:
+            rng.on(dev).set_state(state[name])
     return float(state["lr"])

@@ -1,11 +1,18 @@
 """Training harness: train/eval steps and the epoch loop.
 
 Port of signnet_basisnet_tpu/training/train.py for the ZINC path:
-`l1_graph_loss`, `make_zinc_predict` (with `compute_dtype`), `build_steps`
-(train/eval, `eval_bn_mode`), `evaluate` and `fit` (with checkpoints and
-resume, training/checkpoint.py).  The model and the optimizer hold the
-state that the JAX `TrainState` carries; the LR is a run-time scalar set
-before every optimizer step.
+`l1_graph_loss`, `make_zinc_predict` (with `compute_dtype` and `return_p`),
+`make_lapeig_loss_fn`, `build_steps` (train/eval, `eval_bn_mode`, a
+`loss_fn`), `evaluate` and `fit` (with checkpoints and resume,
+training/checkpoint.py, and the eval-time sign flips).  The model and the
+optimizer hold the state that the JAX `TrainState` carries; the LR is a
+run-time scalar set before every optimizer step.
+
+Sign flips (lap_method `sign_flip`) draw on the model's device from the
+generators the net owns (models/zinc_models.py): every train step from
+`model.flip_rng`, as the JAX train step folds a `sign_flip` key out of its
+rng; an eval step only when it is given a generator, which `fit` does with
+`eval_flip_rng` (the JAX `eval_sign_flip`), one draw per eval batch.
 
 `capture_train_step` is the counterpart of the JAX benchmark's on-device
 step loop (`lax.scan` over `train_step`): the whole train step (forward,
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.pe import apply_lap_method
+from ..models.zinc_models import lapeig_loss
 from ..nn.dropout import Dropout
 from ..utils.profiling import device_memory_stats
 from .checkpoint import load_train_state, train_state
@@ -52,83 +60,123 @@ def l1_graph_loss(pred, gb):
     return masked_l1(pred, _target(pred, gb), gb.graph_mask)
 
 
-def make_zinc_predict(model: torch.nn.Module, lap_method: str = "none",
-                      compute_dtype: Optional[torch.dtype] = None
-                      ) -> Callable:
-    """predict(gb) -> [G] float32 scores: PE sign handling, then the net,
-    in `compute_dtype` when given (see the module docstring)."""
+def _score(pred):
+    """The [G] scores of a prediction, which may be (scores, p)."""
+    return pred[0] if isinstance(pred, tuple) else pred
 
-    def predict(gb):
+
+def make_zinc_predict(model: torch.nn.Module, lap_method: str = "none",
+                      compute_dtype: Optional[torch.dtype] = None,
+                      return_p: bool = False) -> Callable:
+    """predict(gb, flip_rng=None) -> [G] float32 scores, or with
+    `return_p` (scores, p) with the LSPE positional channel p in float32:
+    PE sign handling, then the net, in `compute_dtype` when given (see the
+    module docstring).  Under `sign_flip` the flips are drawn from
+    `flip_rng`; without one the signs stay as they are (an eval step
+    without eval-time flips)."""
+    kwargs = {"return_p": True} if return_p else {}
+
+    def predict(gb, flip_rng=None):
         pos_enc = gb.eigvecs
-        if pos_enc is not None:
-            pos_enc = apply_lap_method(lap_method, pos_enc)
+        if pos_enc is not None and not (lap_method == "sign_flip"
+                                        and flip_rng is None):
+            pos_enc = apply_lap_method(lap_method, gb, pos_enc, rng=flip_rng)
         if compute_dtype is None:
-            return model(gb, pos_enc)
+            return model(gb, pos_enc, **kwargs)
         params = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
         gbc = gb.cast_floats(compute_dtype)
         pe = None if pos_enc is None else pos_enc.to(compute_dtype)
-        out = torch.func.functional_call(model, params, (gbc, pe))
+        out = torch.func.functional_call(model, params, (gbc, pe), kwargs)
+        if return_p:
+            score, p = out
+            return score.float(), None if p is None else p.float()
         return out.float()
 
     return predict
 
 
+def make_lapeig_loss_fn(alpha: float, lam: float, k: int) -> Callable:
+    """loss((scores, p), gb) = L1 + alpha * (tr(p^T L p) + lam *
+    sum_g ||P^T P - I||_F^2) / (k * graphs * nodes): the LSPE auxiliary
+    loss over the batch's real graphs and nodes."""
+
+    def loss_fn(pred, gb):
+        score, p = pred
+        tr, ortho = lapeig_loss(gb, p)
+        denom = k * gb.graph_mask.sum() * gb.node_mask.sum()
+        return (l1_graph_loss(score, gb)
+                + alpha * (tr + lam * ortho) / torch.clamp(denom, min=1.0))
+
+    return loss_fn
+
+
 def build_steps(model: torch.nn.Module, predict: Callable,
                 optimizer: torch.optim.Optimizer,
-                eval_bn_mode: str = "running"):
-    """(train_step(gb, lr) -> metrics, eval_step(gb) -> sums).
+                eval_bn_mode: str = "running",
+                loss_fn: Callable = l1_graph_loss):
+    """(train_step(gb, lr) -> metrics, eval_step(gb, flip_rng=None) ->
+    sums).
 
     eval_bn_mode: "running" normalises eval batches with the BN running
     statistics (torch `model.eval()`); "batch" with the eval batch's own
-    statistics, discarding the running-stat updates.  The loss is the masked
-    L1 of the ZINC protocol.  Metrics stay on the device; `fit`/`evaluate`
-    fetch them once per epoch.
+    statistics, discarding the running-stat updates.  The loss is
+    `loss_fn(pred, gb)`, by default the masked L1 of the ZINC protocol; the
+    MAE is the masked L1 of the scores, which the eval step sums apart from
+    the loss.  A train step draws its sign flips from `model.flip_rng`
+    where the net has one; an eval step from `flip_rng` if given.  Metrics
+    stay on the device; `fit`/`evaluate` fetch them once per epoch.
     """
     if eval_bn_mode not in ("running", "batch"):
         raise ValueError(eval_bn_mode)
 
     def train_step(gb, lr):
         set_lr(optimizer, lr)
-        return _train_body(model, predict, optimizer, gb)
+        return _train_body(model, predict, optimizer, gb, loss_fn)
 
     @torch.no_grad()
-    def eval_step(gb):
+    def eval_step(gb, flip_rng=None):
         if eval_bn_mode == "batch":
             saved = {k: v.clone() for k, v in model.named_buffers()}
             model.train()
-            pred = predict(gb)
+            pred = predict(gb, flip_rng)
             for k, v in model.named_buffers():
                 v.copy_(saved[k])
         else:
             model.eval()
-            pred = predict(gb)
-        loss = l1_graph_loss(pred, gb)
+            pred = predict(gb, flip_rng)
+        loss = loss_fn(pred, gb)
+        score = _score(pred)
+        mae = masked_l1(score, _target(score, gb), gb.graph_mask)
         n = gb.graph_mask.sum()
-        # the loss is the MAE itself (L1), as in the JAX eval step
-        return {"loss_sum": loss * n, "mae_sum": loss * n, "n": n}
+        return {"loss_sum": loss * n, "mae_sum": mae * n, "n": n}
 
     return train_step, eval_step
 
 
-def _train_body(model, predict, optimizer, gb):
+def _train_body(model, predict, optimizer, gb, loss_fn=l1_graph_loss):
     """One train step at the optimizer's current LR: the work a captured
     step replays.  Grads are set to None before the backward, so that
     under capture the backward allocates them in the graph's pool."""
     model.train()
-    pred = predict(gb)
-    loss = l1_graph_loss(pred, gb)
+    pred = predict(gb, getattr(model, "flip_rng", None))
+    loss = loss_fn(pred, gb)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
-    pred = pred.detach()
-    mae = masked_l1(pred, _target(pred, gb), gb.graph_mask)
+    score = _score(pred).detach()
+    mae = masked_l1(score, _target(score, gb), gb.graph_mask)
     return {"loss": loss.detach(), "mae": mae}
 
 
-def _dropout_rngs(model):
-    """The DropoutRNGs that `model`'s dropout layers draw from."""
-    return list({id(m.rng): m.rng for m in model.modules()
-                 if isinstance(m, Dropout) and m.rate}.values())
+def _step_rngs(model):
+    """The generators a train step of `model` draws from: its dropout
+    layers' and its sign-flip generator."""
+    rngs = {id(m.rng): m.rng for m in model.modules()
+            if isinstance(m, Dropout) and m.rate}
+    flip = getattr(model, "flip_rng", None)
+    if flip is not None:
+        rngs[id(flip)] = flip
+    return list(rngs.values())
 
 
 # eager steps run before a capture (the kernels' builds, Adam's state)
@@ -147,11 +195,12 @@ def capture_train_step(model: torch.nn.Module, predict: Callable,
     warmed up eagerly on a side stream `CAPTURE_WARMUP` times, which builds
     the kernels (ops/_nvcc.py) and creates Adam's state, neither of which
     may happen under capture; the model's parameters and buffers, Adam's
-    state and the dropout generator are then put back as they were, so the
-    first replay is the first step.  The graph works on the model's own tensors:
-    each replay updates the parameters, the BatchNorm running statistics
-    and Adam's moments in place, and draws fresh dropout masks (the
-    model's generator is registered with the graph).  The kernel wrappers'
+    state and the generators the step draws from (dropout's, the sign
+    flips') are then put back as they were, so the first replay is the
+    first step.  The graph works on the model's own tensors: each replay
+    updates the parameters, the BatchNorm running statistics and Adam's
+    moments in place, and draws fresh dropout masks and sign flips (the
+    model's generators are registered with the graph).  The kernel wrappers'
     launch counters count the capture once and no replay.  The metrics
     returned are copies of the graph's own output tensors, which the next
     replay overwrites.  `step.model` is the model it trains.
@@ -170,7 +219,7 @@ def capture_train_step(model: torch.nn.Module, predict: Callable,
         saved_opt = {p: {k: v.clone() for k, v in st.items()
                          if isinstance(v, torch.Tensor)}
                      for p, st in optimizer.state.items()}
-    rngs = _dropout_rngs(model)
+    rngs = _step_rngs(model)
     saved_rngs = [None if r.generator is None else r.generator.get_state()
                   for r in rngs]
     side = torch.cuda.Stream(dev)
@@ -223,11 +272,13 @@ class FitResult:
     best_val_test_mae: float = float("nan")
     train_steps: int = 0
     eval_steps: int = 0
+    eval_flip_draws: int = 0
 
 
-def evaluate(eval_step, batches) -> Dict[str, float]:
-    """Mean loss/MAE over `batches`, fetched from the device once."""
-    outs = [eval_step(gb) for gb in batches]
+def evaluate(eval_step, batches, flip_rng=None) -> Dict[str, float]:
+    """Mean loss/MAE over `batches`, fetched from the device once; with
+    `flip_rng` each batch draws its own sign flips from it."""
+    outs = [eval_step(gb, flip_rng) for gb in batches]
     tot = {"loss_sum": 0.0, "mae_sum": 0.0, "n": 0.0}
     if outs:
         stacked = {k: torch.stack([o[k].float() for o in outs]).sum().item()
@@ -248,13 +299,20 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
         test_batches_fn=None, *, epochs=1000, init_lr=1e-3,
         lr_reduce_factor=0.5, lr_schedule_patience=25, min_lr=1e-6,
         max_time_hours=12.0, log_every=5, logger=None, checkpointer=None,
-        resume: bool = False, model=None, optimizer=None) -> FitResult:
+        resume: bool = False, model=None, optimizer=None,
+        eval_flip_rng=None) -> FitResult:
     """Epoch loop with plateau LR, min-lr stop, wall-clock budget and a
-    graceful KeyboardInterrupt: the JAX `fit`.
+    graceful KeyboardInterrupt: the JAX `fit`.  The best epoch is the one
+    of least val loss; its val MAE is reported (they differ under an
+    auxiliary loss).
+
+    With `eval_flip_rng` (the JAX `eval_sign_flip`) every val and test
+    batch draws its own sign flips from that generator; `eval_flip_draws`
+    counts them.
 
     With a `checkpointer` (training/checkpoint.py) the train state of
     `model` and `optimizer` (parameters, BatchNorm statistics, Adam's
-    state, the LR for the next epoch, the dropout generator) is saved
+    state, the LR for the next epoch, the net's generators) is saved
     after every epoch; with `resume` the latest one is restored first and
     the loop starts at the epoch after it, at the restored LR, as the JAX
     `fit` resumes.
@@ -284,9 +342,11 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
             start_epoch = last + 1
             log(f"resumed from checkpoint epoch {last} (lr {sched.lr:.2e})")
 
+    draws0 = 0 if eval_flip_rng is None else eval_flip_rng.draws
+
     def run_eval(batches):
         nonlocal eval_steps
-        out = evaluate(eval_step, batches)
+        out = evaluate(eval_step, batches, eval_flip_rng)
         eval_steps += out["steps"]
         return out
 
@@ -342,4 +402,6 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
     return FitResult(history=history, test_mae=test["mae"], val_mae=val["mae"],
                      epochs_run=epochs_run, wall_time=time.time() - t0,
                      best_val_mae=best_val_mae, best_val_test_mae=best_test,
-                     train_steps=train_steps, eval_steps=eval_steps)
+                     train_steps=train_steps, eval_steps=eval_steps,
+                     eval_flip_draws=(0 if eval_flip_rng is None
+                                      else eval_flip_rng.draws - draws0))

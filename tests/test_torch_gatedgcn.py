@@ -343,17 +343,29 @@ def test_gatedgcn_bf16_predict_close_to_jax(slice_setup, monkeypatch):
     assert grads and all(g.dtype == torch.float32 for g in grads)
 
 
+TILED = ["data.tile", "32", "data.agg_backend", "pallas_tile"]
+
+
 @pytest.mark.parametrize("config,extra,gate_calls", [
-    ("gatedgcn_zinc_signinv_gin", ["data.tile", "32", "data.agg_backend",
-                                   "pallas_tile", "model.pos_enc_dim", "4",
-                                   "model.sign_inv_layers", "2"], True),
-    ("gatedgcn_zinc_nope", [], False)])
+    ("gatedgcn_zinc_signinv_gin", TILED + ["model.pos_enc_dim", "4",
+                                           "model.sign_inv_layers", "2"],
+     True),
+    ("gatedgcn_zinc_nope", [], False),
+    ("gatedgcn_zinc_lappe", TILED, True),
+    ("gatedgcn_zinc_lappe_abs", [], False),
+    ("gatedgcn_zinc_lappe_canonical", TILED, True),
+    ("gatedgcn_zinc_rwpe_lspe", TILED, False),
+    ("gatedgcn_zinc_signinv_masked", ["data.agg_backend", "pallas_tile",
+                                      "model.sign_inv_layers", "2",
+                                      "model.phi_out_dim", "8"], True)])
 def test_train_zinc_runs_gatedgcn_configs_on_cpu(tmp_path, monkeypatch,
                                                  config, extra, gate_calls):
     """The GatedGCN configs cut to a tiny size.  With the slice's overrides
     every layer's gate goes through the tile-local wrapper (on the card,
-    K4), once per layer per forward; the NoPE config as shipped has no tiles
-    and takes the flat gate."""
+    K4), once per layer per forward; the NoPE and abs LapPE configs as
+    shipped have no tiles and take the flat gate, and the LSPE layers run
+    no gate kernel at all.  The masked config (full EVD, k = 37) is tiled
+    as shipped."""
     calls = []
     wrapped = tconv.gatedgcn_gate_tiled
 
@@ -377,20 +389,3 @@ def test_train_zinc_runs_gatedgcn_configs_on_cpu(tmp_path, monkeypatch,
                           if gate_calls else 0)
     assert np.isfinite(res.val_mae) and np.isfinite(res.test_mae)
     assert (tmp_path / "smoke_results.json").exists()
-
-
-@pytest.mark.parametrize("config,match", [
-    ("gatedgcn_zinc_lappe", "item 15"),
-    ("gatedgcn_zinc_lappe_abs", "item 15"),
-    ("gatedgcn_zinc_lappe_canonical", "item 15"),
-    ("gatedgcn_zinc_rwpe_lspe", "item 15"),
-    ("gatedgcn_zinc_signinv_masked", r"items? 12")])
-def test_other_gatedgcn_configs_refuse_their_unported_parts(config, match):
-    cfg = load_config(f"configs/{config}.json", [
-        "data.synth_train", "8", "data.synth_eval", "4", "model.n_layers",
-        "1", "model.hidden_dim", "8", "model.out_dim", "8", "out_dir", ""])
-    try:
-        with pytest.raises(NotImplementedError, match=match):
-            train_zinc.run(cfg, device="cpu", log=lambda m: None)
-    finally:
-        tseg.set_agg_backend("xla")

@@ -830,3 +830,28 @@ def test_captured_step_draws_a_fresh_dropout_mask_each_replay(cuda):
         seg.set_agg_backend("xla")
     assert len(set(losses)) == 3, losses
     assert models[1].dropout_rng.generator.device.type == "cuda"
+
+
+def test_captured_step_draws_fresh_sign_flips_each_replay(cuda):
+    """The GatedGCN LapPE net under sign_flip (configs/gatedgcn_zinc_lappe
+    .json's PE, k = 16, through K4): the train flip generator is
+    registered with the graph, so each replay draws its own flips; at LR 0
+    only the flips change the loss."""
+    from signnet_basisnet_tpu_torch.training import capture_train_step
+    gs = synthetic_zinc(80, 0, 0, seed=5)["train"]
+    add_lap_pe(gs, 16)
+    nb, eb, gc = choose_budgets(gs, 40, tile=256)
+    gb = from_arrays(pack_batches(gs, nb, eb, gc, k=16, tile=256)[0]).to(
+        cuda)
+    model = gnn_model("GatedGCN", hidden_dim=32, out_dim=32, n_layers=2,
+                      pos_enc_dim=16, lap_method="sign_flip").to(cuda)
+    seg.set_agg_backend("pallas_tile")
+    try:
+        captured = capture_train_step(
+            model, make_zinc_predict(model, "sign_flip"),
+            adam(model.parameters(), capturable=True), gb)
+        losses = [float(captured(gb, 0.0)["loss"]) for _ in range(3)]
+    finally:
+        seg.set_agg_backend("xla")
+    assert len(set(losses)) == 3, losses
+    assert model.flip_rng.generator.device.type == "cuda"

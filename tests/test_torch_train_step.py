@@ -233,10 +233,33 @@ def test_train_zinc_runs_flagship_config_on_cpu(tmp_path):
     assert (tmp_path / "smoke_results.json").exists()
 
 
+@pytest.mark.parametrize("override", [
+    ["model.sign_inv_net", "masked_gin"], ["model.lap_method", "sign_flip"]])
+def test_train_zinc_runs_the_flagship_with_the_pe_options_on_cpu(tmp_path,
+                                                                override):
+    """The masked SignNet (on the flagship's k = 8 Laplacian PE) and the
+    sign_flip baseline on the flagship config, through the tile-local SpMM
+    (plain here): each runs, and sign_flip flips once per train step and
+    once per eval batch."""
+    cfg = load_config("configs/gin_zinc_signinv_gin.json", override + [
+        "data.agg_backend", "pallas_tile", "train.epochs", "2",
+        "train.batch_size", "8", "data.synth_train", "24",
+        "data.synth_eval", "8", "model.n_layers", "2", "model.hidden_dim",
+        "8", "model.out_dim", "8", "model.sign_inv_layers", "2",
+        "out_dir", str(tmp_path), "name", "smoke"])
+    try:
+        res = train_zinc.run(cfg, device="cpu", log=lambda m: None)
+    finally:
+        tseg.set_agg_backend("xla")
+    assert res.epochs_run == 2 and res.train_steps >= 4
+    assert res.eval_flip_draws == (res.eval_steps
+                                   if cfg.model.lap_method == "sign_flip"
+                                   else 0)
+    assert np.isfinite(res.val_mae) and np.isfinite(res.test_mae)
+
+
 @pytest.mark.parametrize("override,match", [
     (["train.mp", "2"], "item 20"), (["model.model", "PNA"], "item 13"),
-    (["model.sign_inv_net", "masked_gin"], "item 12"),
-    (["model.lap_method", "sign_flip"], "item 15"),
     (["model.model", "Transformer", "model.full_graph", "true"], "item 10")])
 def test_train_zinc_refuses_unported_options(override, match):
     cfg = load_config("configs/gin_zinc_signinv_gin.json", override + [
