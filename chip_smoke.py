@@ -15,7 +15,7 @@ each so a stall shows where it happened:
 1. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
    and bf16, forward and transposed, at every row width a path runs it
-   with, F = 16, 74, 95, 128, 1088, 1520 and 4958; autograd; a batch
+   with, F = 16, 74, 95, 128, 896, 1088, 1120, 1520 and 4958; autograd; a batch
    with non-tile-local edges), K2/K3 (the fused edge-softmax attention
    forward and backward; f32 and bf16 at D = 8, 10 and 7, both layouts,
    K2's out and den at every row and K3's dE1 at every slot over NaN-filled
@@ -106,7 +106,22 @@ each so a stall shows where it happened:
    data.agg_backend tile_dense (8 K2 and 8 K3 at D = 10 a train step),
    gin_zinc_rwpe_lspe (K1 at F = 95) and gatedgcn_zinc_rwpe_lspe (pallas_tile
    overrides, and no K4: the LSPE layer has none); finite val and test
-   MAE, and under sign_flip one eval draw per eval batch.
+   MAE, and under sign_flip one eval draw per eval batch;
+12. PNA and GAT (no kernel of their own: their JAX layers are XLA segment
+   ops): one full-width train step of configs/pna_zinc_signinv_gin.json
+   (PNANet 16x70, 5 towers) and of configs/gat_zinc_signinv_gin.json
+   (GATNet 8x56, 4 heads), each with data.tile 256 and data.agg_backend
+   pallas_tile so that the 8-layer GIN phi runs K1 at F = 16 and 16 x 70 =
+   1120 (PNA) or 16 x 56 = 896 (GAT): card vs CPU, loss, gradients and BN
+   statistics, with the card's plain path in f32 and f64 (phase 5a's bar
+   is printed; the check holds phase 4a's), and K1's launches and forward
+   widths read against 1 + 7 forward and 7 transposed; the warm step's
+   device time from the profiler; then all seven PNA
+   and GAT configs through train_zinc.run at their published widths (the
+   two SignNet-GIN ones with the pallas_tile overrides, the masked PNA one
+   as shipped, tile_dense, full EVD): eager train and eval step times,
+   peak memory (the masked PNA's beside the masked GatedGCN's of phase
+   10c), every kernel's launches per train and eval step, finite MAE.
 
 Phase 1d holds K5 against its plain version over NaN-filled output memory
 (f32 and bf16 at bench_ops' shape N = 3072, D = 128; D = 95; N = 300;
@@ -144,11 +159,14 @@ MASKED_GATEDGCN_CONFIG = os.path.join("configs",
                                       "gatedgcn_zinc_signinv_masked.json")
 MASKED_TRANSFORMER_CONFIG = os.path.join(
     "configs", "transformer_zinc_signinv_masked.json")
+PNA_CONFIG = os.path.join("configs", "pna_zinc_signinv_gin.json")
+GAT_CONFIG = os.path.join("configs", "gat_zinc_signinv_gin.json")
 # every row width K1 runs at: GIN 16 (phi layer 1), 95 (the base layers),
 # 1520 (phi layers 2-8: 16 channels of 95); the GatedGCN phi 1088 (16 of
 # 68); the masked GatedGCN phi 74 (layer 1: 2k = 74 channels of width 1)
-# and 4958 (layers 2-8: 74 of 67); bench_ops 128
-K1_FEATS = (16, 74, 95, 128, 1088, 1520, 4958)
+# and 4958 (layers 2-8: 74 of 67); the GAT phi 896 (16 of 56) and the PNA
+# phi 1120 (16 of 70); bench_ops 128
+K1_FEATS = (16, 74, 95, 128, 896, 1088, 1120, 1520, 4958)
 # each K4 width a path runs: GatedGCN SignNet 68, masked 67, LapPE 77
 K4_FEATS = (68, 67, 77)
 
@@ -425,7 +443,7 @@ def _gate_plain_on_card():
 
 def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
                             plain_on_card=None, floor_cpu_error=False,
-                            relu_inputs=None):
+                            relu_inputs=None, bn_state=False):
     """One train step from the same weights: on the card in f32, on the CPU
     (the kernels' plain versions) in f32 and in f64.  The f64 step stands
     for the exact one; the card's f32 error against it must stay within
@@ -448,6 +466,10 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
     output a ReLU takes) each f32 run's pre-ReLU signs are compared with
     the CPU's f64 run's, and the flips printed: how many, how near 0 they
     lie in f64, and how many sit in the layer of the worst gradient.
+    With `bn_state` the BatchNorm running statistics after the step are
+    held as the gradients are: the card's f32 error within 10x the CPU's
+    plus 1e-6 of the tensor's largest value, and (with `plain_on_card`)
+    the card's plain f64 run within 1e-9 of it.
     Returns the card's (step, batch) and the errors read."""
     import numpy as np
     import torch
@@ -459,7 +481,7 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
                  ("card_plain_f64", "cuda", torch.float64, plain_on_card)]
     runs += [("cpu", "cpu", torch.float32, contextlib.nullcontext),
              ("cpu_f64", "cpu", torch.float64, contextlib.nullcontext)]
-    losses, grads, signs = {}, {}, {}
+    losses, grads, signs, stats = {}, {}, {}, {}
     for run_name, d, dt, ctx in runs:
         model = gnn_model(model_name, **net).to(d, dt)
         step = make_step(model)
@@ -477,6 +499,8 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
             signs[run_name] = {n: o > 0 for n, o in rec.items()}
         grads[run_name] = {n: p.grad.detach().cpu().double() for n, p in
                            model.named_parameters() if p.grad is not None}
+        stats[run_name] = {n: b.detach().cpu().double()
+                           for n, b in model.named_buffers()}
         if run_name == "card":
             card_step = (step, batch)
     print("  loss " + ", ".join(f"{k} {v:.9f}" for k, v in losses.items()),
@@ -559,12 +583,32 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
                   f"{max(near, default=0.0):.2e} of 0 in f64; in {layer}* "
                   f"{sum(int(f.sum()) for n, f in flips.items() if n.startswith(layer))}",
                   flush=True)
+    worst_bn = None
+    if bn_state:
+        ref = stats["cpu_f64"]
+        worst_bn, gap_bn = (0.0, ""), (0.0, "")
+        for n, r in ref.items():
+            s = float(r.abs().max())
+            e = {k: float((stats[k][n] - r).abs().max()) for k in stats}
+            worst_bn = max(worst_bn, (e["card"] / (10 * e["cpu"] + 1e-6 * s
+                                                   + 1e-12), n))
+            if "card_plain_f64" in e:
+                gap_bn = max(gap_bn, (e["card_plain_f64"] / (s + 1e-12), n))
+        print(f"  BN statistics ({len(ref)} tensors): worst card error / "
+              f"(10x the CPU's + 1e-6 of the largest) {worst_bn[0]:.3f} at "
+              f"{worst_bn[1]}; card plain f64 vs CPU f64 {gap_bn[0]:.3e} of "
+              f"the largest, at {gap_bn[1]}", flush=True)
+        if worst_bn[0] > 1 or (plain_on_card is not None
+                               and not gap_bn[0] < 1e-9):
+            raise AssertionError(f"BN statistics {worst_bn[1]} / "
+                                 f"{gap_bn[1]}: card and CPU disagree")
     if worst[0] > 1:
         raise AssertionError(f"grad {worst[1]}: the card's f32 error is "
                              "beyond 10x the CPU's")
     return card_step, dict(
         losses=losses, worst_vs_pr4_bar=worst_cpu, worst=worst,
-        worst_plain_vs_pr4_bar=worst_plain, f64_gap=f64_gap)
+        worst_plain_vs_pr4_bar=worst_plain, f64_gap=f64_gap,
+        worst_bn=worst_bn)
 
 
 def main():
@@ -594,7 +638,7 @@ def main():
     from signnet_basisnet_tpu_torch import bench, bench_ops
     from signnet_basisnet_tpu_torch.ops.spmm_tiled import (
         _launch, _tile_mask, edge_in_range, spmm_tiled, spmm_tiled_plain)
-    from signnet_basisnet_tpu_torch.train_zinc import run
+    from signnet_basisnet_tpu_torch.train_zinc import net_params, run
     from signnet_basisnet_tpu_torch.utils import nan_filled_empty
     from signnet_basisnet_tpu_torch.utils.profiling import (
         device_kernel_counts, device_kernels)
@@ -684,8 +728,9 @@ def main():
 
         # every F a path launches K1 with (GIN 16, 95, 1520; the GatedGCN
         # phi 1088; the masked GatedGCN phi 74 and 74 * 67 = 4958, which
-        # takes the one-element loads; bench_ops 128), 256 and 512 (32 and
-        # 64 lanes per row): each picks its own variant
+        # takes the one-element loads; the GAT and PNA phis 896 and 1120;
+        # bench_ops 128), 256 and 512 (32 and 64 lanes per row): each picks
+        # its own variant
         for feat in K1_FEATS + (256, 512):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(nb, feat, device=dev, generator=gen).to(dtype)
@@ -2080,20 +2125,6 @@ def main():
               f"eigvecs {arrays_m['eigvecs'].shape}, largest graph "
               f"{int(arrays_m['n_node'].max())} nodes", flush=True)
 
-        def net_of(cfg):
-            m = cfg.model
-            out = dict(hidden_dim=m.hidden_dim, out_dim=m.out_dim,
-                       n_layers=m.n_layers, residual=m.residual,
-                       batch_norm=m.batch_norm, readout=m.readout,
-                       pos_enc_dim=m.pos_enc_dim, lap_method=m.lap_method,
-                       sign_inv_net=m.sign_inv_net,
-                       sign_inv_layers=m.sign_inv_layers,
-                       phi_out_dim=m.phi_out_dim,
-                       pe_aggregate=m.pe_aggregate, seed=cfg.train.seed)
-            if m.model == "Transformer":
-                out.update(num_heads=m.num_heads, layer_norm=m.layer_norm)
-            return out
-
         seg.set_agg_backend(gmcfg.data.agg_backend)
         torch.cuda.reset_peak_memory_stats()
         # the CPU's typical error as a floor, as for the Transformer (4a):
@@ -2103,7 +2134,8 @@ def main():
         # CPU's f32 error: on the kernel path, and in some runs on the
         # card's plain path (no kernels) too
         _, record["masked_gatedgcn_card_vs_cpu"] = _check_step_card_vs_cpu(
-            "GatedGCN", net_of(gmcfg), arrays_m, lambda model: build_steps(
+            "GatedGCN", net_params(gmcfg, None), arrays_m,
+            lambda model: build_steps(
                 model, make_zinc_predict(model, "sign_inv"),
                 adam(model.parameters()))[0],
             plain_on_card=_gate_plain_on_card, floor_cpu_error=True,
@@ -2118,7 +2150,7 @@ def main():
         seg.set_agg_backend(tmcfg.data.agg_backend)
         _, record["masked_transformer_card_vs_cpu"] = (
             _check_step_card_vs_cpu(
-                "Transformer", net_of(tmcfg), arrays_m,
+                "Transformer", net_params(tmcfg, None), arrays_m,
                 lambda model: build_steps(
                     model, make_zinc_predict(model, "sign_inv"),
                     adam(model.parameters()))[0],
@@ -2129,12 +2161,14 @@ def main():
 
     @contextlib.contextmanager
     def k1_widths():
-        """The row widths of the forward K1 calls while the block runs."""
+        """The row widths of the forward K1 calls on the card while the
+        block runs."""
         seen = []
         wrapped = conv_mod.spmm_tiled
 
         def spy(x, *a, **kw):
-            seen.append(x.shape[1])
+            if x.is_cuda:
+                seen.append(x.shape[1])
             return wrapped(x, *a, **kw)
 
         conv_mod.spmm_tiled = spy
@@ -2162,7 +2196,9 @@ def main():
         for k, (tr, ev) in want_per_step.items():
             want[k] = tr * res.train_steps + ev * res.eval_steps
         print(f"  launches {got}; expected {want} for {res.train_steps} "
-              f"train and {res.eval_steps} eval steps", flush=True)
+              f"train and {res.eval_steps} eval steps (per train, eval step: "
+              f"{ {k: want_per_step.get(k, (0, 0)) for k in got} })",
+              flush=True)
         if got != want:
             raise AssertionError(f"{tag}: launches {got}, expected {want}")
         if widths is not None:
@@ -2185,14 +2221,16 @@ def main():
                 raise AssertionError(f"{tag}: eval generator drew "
                                      f"{res.eval_flip_draws} times")
         step_ms = h["train_time"] / h["train_steps"] * 1e3
+        eval_ms = h["eval_time"] / max(h["eval_steps"], 1) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         print(f"  {tag} step time (epoch {h['epoch'] + 1}, "
               f"{h['train_steps']} steps, host clock to the last loss on "
-              f"the host): {step_ms:.2f} ms; peak memory {peak:.0f} MiB; "
+              f"the host): {step_ms:.2f} ms; eval step {eval_ms:.2f} ms "
+              f"({h['eval_steps']} steps); peak memory {peak:.0f} MiB; "
               f"val_mae {res.val_mae:.4f} test_mae {res.test_mae:.4f}",
               flush=True)
         record[f"{tag}_run"] = dict(
-            step_ms=step_ms, peak_mib=peak, launches=got,
+            step_ms=step_ms, eval_ms=eval_ms, peak_mib=peak, launches=got,
             train_steps=res.train_steps, eval_steps=res.eval_steps,
             val_mae=res.val_mae, test_mae=res.test_mae,
             history=res.history)
@@ -2247,6 +2285,90 @@ def main():
                 print(f"  attention head width D = {d}", flush=True)
                 if d != 10:
                     raise AssertionError(f"D = {d}")
+
+    # --------------------------------------------------------------- 12
+    def pna_gat_cfg(name, extra):
+        return load_config(os.path.join("configs", f"{name}.json"), extra + [
+            "data.synth_train", "256", "data.synth_eval", "128",
+            "train.epochs", "2", "train.print_epoch_interval", "1",
+            "out_dir", OUT_DIR, "name", name])
+
+    def phi_k1(cfg):
+        """K1 under the GIN phi: (per train step, per eval step) and the
+        forward widths (2k at layer 1, 2k x hidden at the other layers)."""
+        m = cfg.model
+        k, phi = m.pos_enc_dim, m.sign_inv_layers
+        return (2 * phi - 1, phi), {2 * k: 1, 2 * k * m.hidden_dim: phi - 1}
+
+    # PNA's avg_d_log from a train split as train_zinc takes it
+    gs_pna = synthetic_zinc(512, 0, 0, seed=0)["train"]
+    for label, path in (("12a PNA", PNA_CONFIG), ("12b GAT", GAT_CONFIG)):
+        with Phase(f"{label} full-width step, card vs CPU (pallas_tile)"):
+            # the phase-1 batch (k = 8, 128 graphs in 256-node tiles); the
+            # PNA and GAT layers run no kernel, the GIN phi runs K1
+            cfg = pna_gat_cfg(os.path.splitext(os.path.basename(path))[0],
+                              tiled_over)
+            m = cfg.model
+            (per_train, _), want_w = phi_k1(cfg)
+            seg.set_agg_backend(cfg.data.agg_backend)
+            reset_counts()
+            with k1_widths() as seen:
+                card_step, info = _check_step_card_vs_cpu(
+                    m.model, net_params(cfg, gs_pna), arrays,
+                    lambda model: build_steps(
+                        model, make_zinc_predict(model, m.lap_method),
+                        adam(model.parameters()))[0],
+                    plain_on_card=_gate_plain_on_card, floor_cpu_error=True,
+                    bn_state=True)
+            got = {"K1": spmm_tiled.launches, "K2": tiled.launches_fwd,
+                   "K3": tiled.launches_bwd, "K4": gate.launches,
+                   "K5": flat.launches}
+            got_w = {f: seen.count(f) for f in set(seen)}
+            want = {"K1": per_train, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+            print(f"  launches over the card's train step {got}, expected "
+                  f"{want}; forward K1 widths {got_w}, expected {want_w}",
+                  flush=True)
+            if got != want or got_w != want_w:
+                raise AssertionError(f"{label}: launches {got}, widths "
+                                     f"{got_w}")
+            held = info["worst_vs_pr4_bar"][0] <= 1
+            print(f"  phase 5a's bar (10x the CPU's f32 error) "
+                  f"{'holds' if held else 'does not hold'}: worst "
+                  f"{info['worst_vs_pr4_bar'][0]:.3f} at "
+                  f"{info['worst_vs_pr4_bar'][1]}; phase 4a's bar (with the "
+                  f"CPU's median error as a floor, the card's plain f64 step "
+                  f"within 1e-9) {info['worst'][0]:.3f}", flush=True)
+            info["bar_5a_holds"] = held
+            record[f"{m.model.lower()}_card_vs_cpu"] = info
+            # where the eager step's device time goes (the layers' segment
+            # ops, BN, the phi's K1), warm, on the same batch
+            prof = _profile_steps(*card_step, ["spmm_tiled_kernel"])
+            print(f"  profiler, {m.model} f32 eager step: {prof}",
+                  flush=True)
+            record[f"{m.model.lower()}_warm_f32_step_profile"] = prof
+            del card_step
+
+    over_none, masked_peak = [], record["masked_gatedgcn_f32_run"]["peak_mib"]
+    for name, extra in (("pna_zinc_nope", over_none),
+                        ("pna_zinc_lappe", over_none),
+                        ("pna_zinc_signinv_gin", tiled_over),
+                        ("pna_zinc_signinv_masked", over_none),
+                        ("gat_zinc_nope", over_none),
+                        ("gat_zinc_lappe", over_none),
+                        ("gat_zinc_signinv_gin", tiled_over)):
+        with Phase(f"12c {name} (train_zinc, published widths)"):
+            cfg = pna_gat_cfg(name, extra)
+            if cfg.data.agg_backend == "pallas_tile":
+                per_step, widths = phi_k1(cfg)
+                want = {"K1": per_step}
+            else:
+                want, widths = {}, {}
+            run_path(name, cfg, want, widths)
+            if name == "pna_zinc_signinv_masked":
+                peak = record[f"{name}_run"]["peak_mib"]
+                print(f"  peak memory {peak:.0f} MiB against the masked "
+                      f"GatedGCN's {masked_peak:.0f} MiB (phase 10c)",
+                      flush=True)
 
     kernels = [kern, kern2, kern3, kern4, kern5]
     record["kernels"] = kernels

@@ -7,7 +7,10 @@ them into the port's parameters and buffers:
 - `Linear` kernels [in, out] -> weights [out, in]; biases as they are;
 - BatchNorm `scale`/`bias` -> `weight`/`bias`, `batch_stats/{mean,var}` ->
   `running_mean`/`running_var`;
-- `Embedding` tables -> `weight`.
+- `Embedding` tables -> `weight`;
+- GAT's attention vectors `attn_src`/`attn_dst` (1, H, F) as they are, and
+  the bare `bias` of GAT and GCN (beside their `weight/{kernel,bias}`
+  Linear) -> the layer's `bias`.
 
 Module paths map one to one, except that flax names a GIN layer's update MLP
 `mlp_i` beside the layer while the port nests it as `layer_i.mlp` (`conv_i.mlp`
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias", "mean": "running_mean", "var": "running_var"}
+         "bias": "bias", "mean": "running_mean", "var": "running_var",
+         "attn_src": "attn_src", "attn_dst": "attn_dst"}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:

@@ -14,7 +14,8 @@ statistics (n in [9, 37], ~2.2 average degree, 28 atom / 4 bond types) and
 a graph-computable regression target; from the same seed it yields the
 same graphs as the JAX package.  The positional encodings are attached in
 place: `add_lap_pe` (k eigenvectors), `add_full_evd` (all n) and
-`add_rwpe` (the random-walk PE).  `load_zinc` reads the pickles where they
+`add_rwpe` (the random-walk PE); `avg_degree_stats` gives the PNA scalers
+their train-split degree statistics.  `load_zinc` reads the pickles where they
 exist and falls back to the synthetic stand-in, as the JAX loader does.
 """
 from __future__ import annotations
@@ -210,3 +211,16 @@ def load_zinc(data_dir: str = "data/zinc", subset: bool = True,
         if not synthetic_fallback:
             raise
         return synthetic_zinc(*synth_sizes, seed=seed), False
+
+
+def avg_degree_stats(graphs: List[dict]) -> dict:
+    """The train split's degree statistics for the PNA scalers: the mean of
+    log(d + 1) over every node ('log') and the mean of d ('exp'), d the
+    in-degree counted over the receivers."""
+    logs = []
+    for g in graphs:
+        n = int(np.asarray(g["node_feat"]).shape[0])
+        deg = np.bincount(np.asarray(g["receivers"]), minlength=n)
+        logs.append(np.log(deg + 1))
+    cat = np.concatenate(logs)
+    return {"log": float(cat.mean()), "exp": float(np.exp(cat).mean() - 1)}

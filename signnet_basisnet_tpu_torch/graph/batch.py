@@ -81,6 +81,12 @@ class GraphBatch:
         counts = torch.clamp(self.n_node, min=1).to(torch.float32)
         return counts[self.graph_id.long()]
 
+    def snorm(self) -> torch.Tensor:
+        """[N, 1] graph-size normalisation 1/sqrt(|V_g|) of each node,
+        0 on the padding nodes (the reference's `snorm_n`)."""
+        return ((1.0 / torch.sqrt(self.nodes_per_graph()))
+                * self.node_mask)[:, None]
+
     def in_degrees(self) -> torch.Tensor:
         """[N] in-degree of each node over the real edges, in the edge
         mask's type."""

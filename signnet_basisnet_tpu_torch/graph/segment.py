@@ -1,13 +1,16 @@
 """Segment reductions — the message-passing primitives.
 
 Port of signnet_basisnet_tpu/graph/segment.py onto `index_add_` and
-`scatter_reduce`, with the JAX module's two switches: the sum backend
+`scatter_reduce` (`segment_sum`, `segment_mean`, `segment_max`,
+`segment_min`, `segment_softmax`), with the JAX module's two switches: the sum backend
 (`set_sum_backend`: 'xla', index_add_, or 'onehot', a product with a
 one-hot matrix built on the device by comparison, never syncing the host:
 ops/segment_matmul.py) and the neighbor-aggregation backend
 (`set_agg_backend`).  All functions take a static `num_segments` and never
-produce NaNs on empty segments: means divide by max(count, 1), and max
-returns `empty_value` for a segment with no (unmasked) entries.
+produce NaNs on empty segments: means divide by max(count, 1), max and min
+return `empty_value` for a segment with no (unmasked) entries, and the
+softmax divides by max(denominator, 1e-16).  A tied max or min shares its
+gradient evenly among the tied entries, as the JAX reductions do.
 """
 from __future__ import annotations
 
@@ -94,6 +97,34 @@ def segment_max(data, segment_ids, num_segments,
     out = out.scatter_reduce(0, idx, data, reduce="amax", include_self=True)
     return torch.where(out <= _NEG_BIG / 2, torch.full_like(out, empty_value),
                        out)
+
+
+def segment_min(data, segment_ids, num_segments,
+                mask: Optional[torch.Tensor] = None, empty_value=0.0):
+    """Min over segments; empty segments yield `empty_value`."""
+    if mask is not None:
+        data = torch.where(_bcast(mask, data) > 0, data,
+                           torch.full_like(data, -_NEG_BIG))
+    idx = _bcast(segment_ids.long(), data).expand_as(data)
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), -_NEG_BIG)
+    out = out.scatter_reduce(0, idx, data, reduce="amin", include_self=True)
+    return torch.where(out >= -_NEG_BIG / 2, torch.full_like(out, empty_value),
+                       out)
+
+
+def segment_softmax(scores, segment_ids, num_segments,
+                    mask: Optional[torch.Tensor] = None):
+    """Per-segment softmax, stable: the segment's (masked) max is
+    subtracted first (0 for an empty segment), masked entries get 0, and
+    the denominator is at least 1e-16."""
+    ids = segment_ids.long()
+    maxes = segment_max(scores, segment_ids, num_segments, mask=mask,
+                        empty_value=0.0)
+    ex = torch.exp(scores - maxes[ids])
+    if mask is not None:
+        ex = ex * _bcast(mask, ex)
+    denom = segment_sum(ex, segment_ids, num_segments)
+    return ex / torch.clamp(denom, min=1e-16)[ids]
 
 
 def aggregate_edges(edge_msg, receivers, num_nodes, edge_mask=None,

@@ -1,21 +1,30 @@
-"""Graph convolution on padded batched graphs: the GIN, GatedGCN and
-Transformer paths.
+"""Graph convolution on padded batched graphs: the GIN, GatedGCN,
+Transformer, GCN, GAT and PNA layers.
 
 Port of signnet_basisnet_tpu/models/conv.py:26-58,104-125 (`neighbor_sum`,
-`node_mask_like`, `pool_any`, `GINConv`), :312-381 (`GatedGCNLayer`),
-:384-447 (`GatedGCNLSPELayer`) and :682-811 (`GraphTransformerAttention`,
-`GraphTransformerLayer`, sparse path).  The other layers of that file
-(GINE, GCN, GAT, PNA) and the full-graph transformer are later slices of
-the port (ROADMAP.md queue 1).
+`node_mask_like`, `pool_any`, `GINConv`), :216-244 (`GCNConv`), :247-309
+(`GATConv`), :312-381 (`GatedGCNLayer`), :384-447 (`GatedGCNLSPELayer`),
+:450-649 (`PNA_EPS`, `pna_aggregate`, `pna_scale`, `PNATower`, `PNALayer`,
+`PNANoTowersLayer`) and :682-811 (`GraphTransformerAttention`,
+`GraphTransformerLayer`, sparse path).  GCN, GAT and PNA reach no kernel:
+their JAX layers are XLA segment ops, so here they are plain torch ops
+over `graph.segment`.  The other layers of that file (GINE, the masked GIN
+and GINE, the simplified PNA) and the full-graph transformer are later
+slices of the port (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
+import math
+from typing import Optional, Sequence
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..graph import CSR_KEYS, segment as seg
 from ..nn.dropout import Dropout
-from ..nn.init import Linear
+from ..nn.init import ACTIVATIONS, Linear
+from ..nn.mlp import MLP
 from ..nn.norm import MaskedBatchNorm, MaskedLayerNorm
 from ..ops import (edge_softmax_attention_reference,
                    edge_softmax_attention_tiled, gatedgcn_gate_reference,
@@ -45,6 +54,15 @@ def neighbor_sum(x, gb):
     msg = x.index_select(0, gb.senders.long())
     return seg.aggregate_edges(msg, gb.receivers, gb.num_nodes,
                                edge_mask=gb.edge_mask)
+
+
+def refuse_halo(gb):
+    """The model-parallel halo exchange (`mp_send_idx` in extras) is not
+    ported: a layer that gathers by sender refuses such a batch."""
+    if "mp_send_idx" in gb.extras:
+        raise NotImplementedError(
+            "the model-parallel halo exchange is not ported yet "
+            "(ROADMAP.md queue 1 item 20)")
 
 
 def batch_csr(gb):
@@ -81,6 +99,114 @@ class GINConv(nn.Module):
         return self.mlp(out, mask=node_mask_like(gb, out))
 
 
+class GCNConv(nn.Module):
+    """Symmetric-normalised graph convolution on [N, D]:
+    out = d^-1/2 (sum_j d_j^-1/2 W x_j [+ d^-1/2 W x]) + bias, d the
+    in-degree over the real edges (plus 1 on real nodes with
+    `add_self_loops`, PyG's GCNConv; without, DGL's GraphConv with
+    norm='both'), 0 where d = 0.  Names: `weight` (a Linear with its own
+    bias) and the bare `bias`, as in flax."""
+
+    def __init__(self, in_dim: int, features: int,
+                 add_self_loops: bool = True,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.add_self_loops = add_self_loops
+        self.activation = activation
+        self.weight = Linear(in_dim, features)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, gb, x):
+        refuse_halo(gb)
+        deg = gb.in_degrees()
+        if self.add_self_loops:
+            deg = deg + gb.node_mask
+        d = torch.where(deg > 0, deg ** -0.5, torch.zeros_like(deg))[:, None]
+        h = self.weight(x)
+        msg = (h * d).index_select(0, gb.senders.long())
+        agg = seg.aggregate_edges(msg, gb.receivers, gb.num_nodes,
+                                  edge_mask=gb.edge_mask)
+        if self.add_self_loops:
+            agg = agg + h * d
+        out = agg * d + self.bias
+        if self.activation:
+            out = ACTIVATIONS[self.activation](out)
+        return out
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention, GATv1 scores: LeakyReLU(a_src . W x_j +
+    a_dst . W x_i), a softmax over each destination's real edges, the
+    weighted sum of W x_j; heads concatenated (`concat`) or averaged, then
+    `bias` and the activation.  With `add_self_loops` (PyG) the self term
+    joins the softmax analytically; without (DGL, the ZINC net) a node with
+    no real in-edge gets 0 before the bias.  x is [N, D] or [N, K, D]: the
+    gathers run along axis 0 and the edge mask broadcasts over the middle
+    axes.  Not the attention kernel K2: that computes the Transformer's
+    clamped-exp dot-product score.  Names: `weight` (no bias), `attn_src`,
+    `attn_dst` of shape (1, H, F), `bias`, as in flax."""
+
+    def __init__(self, in_dim: int, features: int, num_heads: int = 1,
+                 concat: bool = True, add_self_loops: bool = True,
+                 negative_slope: float = 0.2,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.features = features
+        self.num_heads = num_heads
+        self.concat = concat
+        self.add_self_loops = add_self_loops
+        self.negative_slope = negative_slope
+        self.activation = activation
+        self.weight = Linear(in_dim, num_heads * features, use_bias=False)
+        self.attn_src = nn.Parameter(torch.empty(1, num_heads, features))
+        self.attn_dst = nn.Parameter(torch.empty(1, num_heads, features))
+        self.bias = nn.Parameter(torch.zeros(
+            num_heads * features if concat else features))
+
+    def reset_parameters(self, generator):
+        # flax's glorot_uniform on (1, H, F): fan_in H, fan_out F
+        bound = math.sqrt(6.0 / (self.num_heads + self.features))
+        with torch.no_grad():
+            for a in (self.attn_src, self.attn_dst):
+                a.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, gb, x):
+        refuse_halo(gb)
+        H, Fh, n = self.num_heads, self.features, gb.num_nodes
+        src, dst = gb.senders.long(), gb.receivers.long()
+        h = self.weight(x)
+        h = h.reshape(h.shape[:-1] + (H, Fh))
+        el = (h * self.attn_src).sum(-1)                # N [K] H
+        er = (h * self.attn_dst).sum(-1)
+        h_src = h.index_select(0, src)
+        scores = F.leaky_relu(el.index_select(0, src) + er.index_select(0, dst),
+                              self.negative_slope)      # E [K] H
+        emask = gb.edge_mask.reshape((-1,) + (1,) * (scores.dim() - 1))
+        if self.add_self_loops:
+            self_scores = F.leaky_relu(el + er, self.negative_slope)
+            m = seg.segment_max(scores, gb.receivers, n, mask=gb.edge_mask,
+                                empty_value=-1e30)
+            m = torch.maximum(m, self_scores)
+            ex = torch.exp(scores - m.index_select(0, dst)) * emask
+            ex_self = torch.exp(self_scores - m)
+            denom = torch.clamp(seg.segment_sum(ex, gb.receivers, n)
+                                + ex_self, min=1e-16)
+            alpha = ex / denom.index_select(0, dst)
+            agg = seg.segment_sum(alpha[..., None] * h_src, gb.receivers, n)
+            agg = agg + (ex_self / denom)[..., None] * h
+        else:
+            alpha = seg.segment_softmax(scores, gb.receivers, n,
+                                        mask=gb.edge_mask)
+            agg = seg.segment_sum(alpha[..., None] * h_src * emask[..., None],
+                                  gb.receivers, n)
+        out = (agg.reshape(agg.shape[:-2] + (H * Fh,)) if self.concat
+               else agg.mean(dim=-2))
+        out = out + self.bias
+        if self.activation:
+            out = ACTIVATIONS[self.activation](out)
+        return out
+
+
 class GatedGCNLayer(nn.Module):
     """Residual gated graph conv (Bresson & Laurent):
     e' = D h_src + E h_dst + C e; h' = A h + sum sigma(e') * B h_src /
@@ -110,10 +236,7 @@ class GatedGCNLayer(nn.Module):
             self.bn_e = MaskedBatchNorm(features)
 
     def forward(self, gb, h, e, snorm_n=None):
-        if "mp_send_idx" in gb.extras:
-            raise NotImplementedError(
-                "the model-parallel halo exchange is not ported yet "
-                "(ROADMAP.md queue 1 item 20)")
+        refuse_halo(gb)
         h_in, e_in = h, e
         Ah, Bh, Dh, Eh = (getattr(self, m)(h) for m in "ABDE")
         Ce = self.C(e)
@@ -173,10 +296,7 @@ class GatedGCNLSPELayer(nn.Module):
             self.bn_e = MaskedBatchNorm(features)
 
     def forward(self, gb, h, p, e):
-        if "mp_send_idx" in gb.extras:
-            raise NotImplementedError(
-                "the model-parallel halo exchange is not ported yet "
-                "(ROADMAP.md queue 1 item 20)")
+        refuse_halo(gb)
         h_in, p_in, e_in = h, p, e
         hp = torch.cat([h, p], dim=-1)
         src, dst = gb.senders.long(), gb.receivers.long()
@@ -199,6 +319,213 @@ class GatedGCNLSPELayer(nn.Module):
             e_new = e_in + e_new
             p_new = p_in + p_new
         return self.drop(h_new), p_new, self.drop(e_new)
+
+
+PNA_EPS = 1e-5
+_MOMENTS = ("std", "var", "moment3", "moment4", "moment5")
+
+
+def pna_aggregate(msg, gb, aggregators: Sequence[str]):
+    """PNA's aggregators over the real edges into each destination, from
+    masked segment sums (no neighbour mailbox): mean, sum, max, min (0 for
+    a node with no real in-edge), var = relu(E[m^2] - E[m]^2), std =
+    sqrt(var + PNA_EPS) and the centred moments 3-5 as
+    sign(M_n) (|M_n| + PNA_EPS)^(1/n).  Returns (the list, deg [N, 1]),
+    deg the real in-degree clamped at >= 1."""
+    recv, n = gb.receivers, gb.num_nodes
+    E = gb.edge_mask[:, None]
+    deg = torch.clamp(seg.segment_sum(gb.edge_mask, recv, n), min=1.0)[:, None]
+    s1 = seg.segment_sum(msg * E, recv, n)
+    mean = s1 / deg
+    if any(a in _MOMENTS for a in aggregators):
+        s2 = seg.segment_sum(msg * msg * E, recv, n)
+        var = torch.relu(s2 / deg - mean * mean)
+    outs = []
+    for a in aggregators:
+        if a == "mean":
+            outs.append(mean)
+        elif a == "sum":
+            outs.append(s1)
+        elif a == "max":
+            outs.append(seg.segment_max(msg, recv, n, mask=gb.edge_mask))
+        elif a == "min":
+            outs.append(seg.segment_min(msg, recv, n, mask=gb.edge_mask))
+        elif a == "var":
+            outs.append(var)
+        elif a == "std":
+            outs.append(torch.sqrt(var + PNA_EPS))
+        elif a in ("moment3", "moment4", "moment5"):
+            k = int(a[-1])
+            centred = msg - mean.index_select(0, recv.long())
+            mk = seg.segment_sum(centred ** k * E, recv, n) / deg
+            outs.append(torch.sign(mk) * (torch.abs(mk) + PNA_EPS) ** (1.0 / k))
+        else:
+            raise ValueError(f"unknown aggregator {a!r}")
+    return outs, deg
+
+
+def pna_scale(h, deg, avg_d_log: float, scalers: Sequence[str]):
+    """PNA's degree scalers of h: identity, amplification log(d + 1) /
+    avg_d_log and attenuation avg_d_log / max(log(d + 1), 1e-6)."""
+    logd = torch.log(deg + 1.0)
+    outs = []
+    for s in scalers:
+        if s == "identity":
+            outs.append(h)
+        elif s == "amplification":
+            outs.append(h * (logd / avg_d_log))
+        elif s == "attenuation":
+            outs.append(h * (avg_d_log / torch.clamp(logd, min=1e-6)))
+        else:
+            raise ValueError(f"unknown scaler {s!r}")
+    return outs
+
+
+def _pna_message(gb, h, e, edge_features: bool):
+    """[h_src, h_dst(, e)] per edge: the pretrans input."""
+    parts = [h.index_select(0, gb.senders.long()),
+             h.index_select(0, gb.receivers.long())]
+    if edge_features:
+        parts.append(e)
+    return torch.cat(parts, dim=-1)
+
+
+class PNATower(nn.Module):
+    """One PNA tower over h [N, in_dim]: the pretrans MLP on [h_src, h_dst
+    (, e)] (e the whole bond embedding, edge_dim wide), the aggregators
+    times the scalers, the posttrans MLP on [h, those], then graph norm
+    (times snorm), the masked BN `bn` and dropout.  Names: `pretrans`,
+    `posttrans` (MLPs, `lin_i`) and `bn`, as in flax."""
+
+    def __init__(self, in_dim: int, features: int, edge_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 avg_d_log: float, dropout: float = 0.0,
+                 graph_norm: bool = True, batch_norm: bool = True,
+                 edge_features: bool = False, pretrans_layers: int = 1,
+                 posttrans_layers: int = 1, rng=None):
+        super().__init__()
+        self.aggregators, self.scalers = tuple(aggregators), tuple(scalers)
+        self.avg_d_log = avg_d_log
+        self.graph_norm = graph_norm
+        self.batch_norm = batch_norm
+        self.edge_features = edge_features
+        z_dim = 2 * in_dim + (edge_dim if edge_features else 0)
+        self.pretrans = MLP(z_dim, in_dim, in_dim, pretrans_layers)
+        post_in = in_dim * (1 + len(self.aggregators) * len(self.scalers))
+        self.posttrans = MLP(post_in, features, features, posttrans_layers)
+        if batch_norm:
+            self.bn = MaskedBatchNorm(features)
+        self.drop = Dropout(dropout, rng)
+
+    def forward(self, gb, h, e, snorm_n=None):
+        msg = self.pretrans(_pna_message(gb, h, e, self.edge_features))
+        aggs, deg = pna_aggregate(msg, gb, self.aggregators)
+        hcat = torch.cat(pna_scale(torch.cat(aggs, dim=-1), deg,
+                                   self.avg_d_log, self.scalers), dim=-1)
+        out = self.posttrans(torch.cat([h, hcat], dim=-1))
+        if self.graph_norm and snorm_n is not None:
+            out = out * snorm_n
+        if self.batch_norm:
+            out = self.bn(out, mask=gb.node_mask)
+        return self.drop(out)
+
+
+class PNALayer(nn.Module):
+    """Towers `tower_{t}` over h (each over its in_dim // towers slice with
+    `divide_input`, else over all of h), features // towers wide each, then
+    the `mixing` Linear, leaky ReLU (slope 0.01) and the residual where the
+    shapes match."""
+
+    def __init__(self, in_dim: int, features: int, edge_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 avg_d_log: float, towers: int = 1, dropout: float = 0.0,
+                 graph_norm: bool = True, batch_norm: bool = True,
+                 residual: bool = False, edge_features: bool = False,
+                 divide_input: bool = True, pretrans_layers: int = 1,
+                 posttrans_layers: int = 1, rng=None):
+        super().__init__()
+        self.towers = towers
+        self.residual = residual
+        self.divide_input = divide_input
+        self.tower_in = in_dim // towers if divide_input else in_dim
+        tower_out = features // towers
+        for t in range(towers):
+            self.add_module(f"tower_{t}", PNATower(
+                self.tower_in, tower_out, edge_dim, aggregators, scalers,
+                avg_d_log, dropout=dropout, graph_norm=graph_norm,
+                batch_norm=batch_norm, edge_features=edge_features,
+                pretrans_layers=pretrans_layers,
+                posttrans_layers=posttrans_layers, rng=rng))
+        self.mixing = Linear(towers * tower_out, features)
+
+    def forward(self, gb, h, e, snorm_n=None):
+        refuse_halo(gb)
+        w = self.tower_in
+        outs = [getattr(self, f"tower_{t}")(
+            gb, h[:, t * w:(t + 1) * w] if self.divide_input else h, e,
+            snorm_n) for t in range(self.towers)]
+        out = F.leaky_relu(self.mixing(torch.cat(outs, dim=-1)), 0.01)
+        if self.residual and h.shape == out.shape:
+            out = h + out
+        return out
+
+
+class PNANoTowersLayer(nn.Module):
+    """The towerless PNA layer, with the reference's quirks: dropout on the
+    input first; the pretrans MLP `pretrans_h` runs only with edge
+    features (without, the messages are the raw source rows and posttrans
+    sees the aggregations alone); the scalers apply only when there are
+    more than one; graph norm only with edge features; then `bn_h`, ReLU
+    and the residual where the shapes match."""
+
+    def __init__(self, in_dim: int, features: int, edge_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 avg_d_log: float, dropout: float = 0.0,
+                 graph_norm: bool = True, batch_norm: bool = True,
+                 residual: bool = True, edge_features: bool = False,
+                 pretrans_layers: int = 1, posttrans_layers: int = 1,
+                 rng=None):
+        super().__init__()
+        self.aggregators, self.scalers = tuple(aggregators), tuple(scalers)
+        self.avg_d_log = avg_d_log
+        self.graph_norm = graph_norm
+        self.batch_norm = batch_norm
+        self.residual = residual
+        self.edge_features = edge_features
+        self.drop = Dropout(dropout, rng)
+        if edge_features:
+            self.pretrans_h = MLP(2 * in_dim + edge_dim, in_dim, in_dim,
+                                  pretrans_layers)
+        n_scale = len(self.scalers) if len(self.scalers) > 1 else 1
+        post_in = (in_dim * len(self.aggregators) * n_scale
+                   + (in_dim if edge_features else 0))
+        self.posttrans_h = MLP(post_in, features, features, posttrans_layers)
+        if batch_norm:
+            self.bn_h = MaskedBatchNorm(features)
+
+    def forward(self, gb, h, e, snorm_n=None):
+        refuse_halo(gb)
+        h = self.drop(h)
+        if self.edge_features:
+            msg = self.pretrans_h(_pna_message(gb, h, e, True))
+        else:
+            msg = h.index_select(0, gb.senders.long())
+        aggs, deg = pna_aggregate(msg, gb, self.aggregators)
+        hcat = torch.cat(aggs, dim=-1)
+        if len(self.scalers) > 1:
+            hcat = torch.cat(pna_scale(hcat, deg, self.avg_d_log,
+                                       self.scalers), dim=-1)
+        if self.edge_features:
+            hcat = torch.cat([h, hcat], dim=-1)
+        out = self.posttrans_h(hcat)
+        if self.graph_norm and self.edge_features and snorm_n is not None:
+            out = out * snorm_n
+        if self.batch_norm:
+            out = self.bn_h(out, mask=gb.node_mask)
+        out = torch.relu(out)
+        if self.residual and h.shape == out.shape:
+            out = h + out
+        return out
 
 
 class GraphTransformerAttention(nn.Module):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..graph import segment as seg
+from .conv import refuse_halo
 
 
 def sign_flip(pos_enc, rng):
@@ -38,10 +39,7 @@ def canonical(gb, pos_enc, exact: bool = False):
     `exact=True` (lap_method canonical_ref) keeps the published quirk:
     where both criteria fire the multiplier is -2, not -1 (PARITY.md
     deviation 1); the default is a pure +-1 sign choice."""
-    if "mp_send_idx" in gb.extras:
-        raise NotImplementedError(
-            "the model-parallel halo exchange is not ported yet "
-            "(ROADMAP.md queue 1 item 20)")
+    refuse_halo(gb)
     nm = gb.node_mask[:, None].to(pos_enc.dtype)
 
     def pool(v):

@@ -1,11 +1,11 @@
-"""ZINC graph-regression nets: GatedGCNNet, GINNet and TransformerNet with
-their PE encoders.
+"""ZINC graph-regression nets: GatedGCNNet, GINNet, GATNet, PNANet and
+TransformerNet with their PE encoders.
 
 Port of signnet_basisnet_tpu/models/zinc_models.py:28-64 (`lapeig_loss`,
 `normalize_p`), :67-166 (`_Base`: `sign_inv_module`, `embed_inputs`,
 `readout_head`), :169-203 (`GatedGCNNet`, its LSPE branch included),
-:206-231 (`GINNet`, likewise) and :298-316 (`TransformerNet`, sparse
-path).  Signature: ``model(gb, pos_enc) -> [G]`` scores; GIN and GatedGCN also
+:206-231 (`GINNet`, likewise), :234-250 (`GATNet`), :253-296 (`PNANet`)
+and :298-316 (`TransformerNet`, sparse path).  Signature: ``model(gb, pos_enc) -> [G]`` scores; GIN and GatedGCN also
 return the LSPE positional channel p, as ``(scores, p)``, with
 ``return_p=True`` (p is None off the LSPE path).  PE: `pe_init` in {none, lap_pe, rand_walk};
 with `rand_walk`, or `use_lspe` on GIN and GatedGCN, the embedded PE p
@@ -14,8 +14,8 @@ both nets merge it after the last layer (`p_out`, `normalize_p`, `Whp`
 over [h || p]).  Submodule names follow the flax ones
 (`embedding_h`, `embedding_p`, `embedding_hp`, `embedding_e`,
 `sign_inv_net`, `layer_i` with `layer_i.mlp` for flax's `mlp_i`,
-`p_out`, `Whp`, `mlp_readout`), so the weight bridge (bridge.py) is a name
-mapping.  With lap_method `sign_flip` the net also owns the generators its
+`gru`, `p_out`, `Whp`, `mlp_readout`), so the weight bridge (bridge.py) is
+a name mapping.  With lap_method `sign_flip` the net also owns the generators its
 flips draw from: `flip_rng` (train steps, seeded from `seed`) and
 `eval_flip_rng` (eval batches, seeded from `seed + 10007`, the JAX
 `fit`'s eval key).
@@ -23,8 +23,8 @@ Dropout (`dropout`, `in_feat_dropout`) is applied where the JAX nets apply
 it, the SignNet phi and rho included, drawing from the model's
 `dropout_rng`, a generator seeded from `seed` (nn/dropout.py).
 
-`gnn_model` builds GatedGCN, GIN and Transformer; the other nets raise
-NotImplementedError naming their ROADMAP.md item.
+`gnn_model` builds the five ZINC nets: GatedGCN, GIN, GAT, PNA and
+Transformer.
 """
 from __future__ import annotations
 
@@ -34,9 +34,11 @@ from torch import nn
 from ..nn.dropout import Dropout, DropoutRNG
 from ..nn.init import Embedding, Linear, init_parameters
 from ..nn.mlp import MLP, MLPReadout
+from ..nn.set2set import GRUStep
 from ..graph import segment as seg
-from .conv import (GatedGCNLayer, GatedGCNLSPELayer, GINConv,
-                   GraphTransformerLayer, pool_any)
+from .conv import (GATConv, GatedGCNLayer, GatedGCNLSPELayer, GINConv,
+                   GraphTransformerLayer, PNALayer, PNANoTowersLayer,
+                   pool_any)
 from .signnet import GINDeepSigns, MaskedGINDeepSigns
 
 # the JAX fit's eval key is PRNGKey(seed + 10007)
@@ -252,6 +254,86 @@ class GINNet(ZincNet):
         return (out, p) if return_p else out
 
 
+class GATNet(ZincNet):
+    """n_layers - 1 GAT layers of num_heads heads of width
+    hidden_dim // num_heads, concatenated, with ELU; then one single-head
+    layer of width out_dim.  No BN and no residual, as in the JAX net
+    (batch_norm and residual are taken and unused); the bond embedding is
+    made but unused, as flax makes it."""
+
+    def __init__(self, hidden_dim: int = 95, out_dim: int = 95,
+                 n_layers: int = 16, batch_norm: bool = True,
+                 residual: bool = True, num_heads: int = 8, seed: int = 0,
+                 **base):
+        del batch_norm, residual
+        super().__init__(hidden_dim=hidden_dim, readout_dim=out_dim,
+                         seed=seed, **base)
+        self.n_layers = n_layers
+        head_dim = hidden_dim // num_heads
+        d_in = hidden_dim
+        for i in range(n_layers - 1):
+            self.add_module(f"layer_{i}", GATConv(
+                d_in, head_dim, num_heads=num_heads, concat=True,
+                add_self_loops=False, activation="elu"))
+            d_in = head_dim * num_heads
+        self.add_module(f"layer_{n_layers - 1}", GATConv(
+            d_in, out_dim, num_heads=1, concat=False, add_self_loops=False))
+        init_parameters(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, gb, pos_enc=None):
+        h, _, _ = self.embed_inputs(gb, pos_enc)
+        for i in range(self.n_layers):
+            h = getattr(self, f"layer_{i}")(gb, h)
+        return self.readout_head(gb, h)
+
+
+class PNANet(ZincNet):
+    """n_layers PNA layers of width hidden_dim (out_dim unused, as in the
+    JAX net): `towers` towers each (`PNALayer`), or the towerless layer
+    with `no_towers`; graph norm by the batch's snorm; with `gru`, one
+    shared GRU (`gru`) updates the layer output from the layer input
+    between layers.  `avg_d_log` is the train split's mean log(d + 1)
+    (data.zinc.avg_degree_stats)."""
+
+    def __init__(self, hidden_dim: int = 95, out_dim: int = 95,
+                 n_layers: int = 16, batch_norm: bool = True,
+                 residual: bool = True, seed: int = 0,
+                 aggregators=("mean", "max", "min", "std"),
+                 scalers=("identity", "amplification", "attenuation"),
+                 avg_d_log: float = 1.0, towers: int = 5,
+                 divide_input: bool = True, graph_norm: bool = True,
+                 pretrans_layers: int = 1, posttrans_layers: int = 1,
+                 gru: bool = False, no_towers: bool = False, **base):
+        del out_dim
+        super().__init__(hidden_dim=hidden_dim, readout_dim=hidden_dim,
+                         seed=seed, **base)
+        self.n_layers = n_layers
+        kw = dict(dropout=self.dropout, graph_norm=graph_norm,
+                  batch_norm=batch_norm, residual=residual,
+                  edge_features=self.edge_feat,
+                  pretrans_layers=pretrans_layers,
+                  posttrans_layers=posttrans_layers, rng=self.dropout_rng)
+        if not no_towers:
+            kw.update(towers=towers, divide_input=divide_input)
+        layer = PNANoTowersLayer if no_towers else PNALayer
+        for i in range(n_layers):
+            self.add_module(f"layer_{i}", layer(
+                hidden_dim, hidden_dim, hidden_dim, aggregators, scalers,
+                avg_d_log, **kw))
+        self.gru = GRUStep(hidden_dim) if gru else None
+        init_parameters(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, gb, pos_enc=None):
+        h, _, e = self.embed_inputs(gb, pos_enc)
+        snorm = gb.snorm()
+        for i in range(self.n_layers):
+            h_t = getattr(self, f"layer_{i}")(gb, h, e, snorm)
+            if self.gru is not None and i != self.n_layers - 1:
+                h_t = self.gru(h, h_t)
+            h = h_t
+        return self.readout_head(gb, h)
+
+
 class TransformerNet(ZincNet):
     """Graph transformer layers of width hidden_dim (out_dim unused, as in
     the JAX net), attention modulated by the bond embedding when edge_feat
@@ -287,34 +369,30 @@ class TransformerNet(ZincNet):
 
 def sign_inv_module(kind: str, hidden: int, phi_out: int, num_layers: int,
                     k: int, dropout: float = 0.0, rng=None) -> nn.Module:
-    """sign_inv_net factory.  use_bn=True always, as the reference hardcodes
-    it for every sign_inv variant (without BN the 8-layer sum-aggregation phi
-    produces unbounded activations)."""
+    """sign_inv_net factory: the GIN or GAT phi (`gin`, `gat`) or the
+    masked GIN one (`masked_gin`); `gcn` raises ValueError (models/
+    signnet.py says why).  use_bn=True always, as the reference hardcodes
+    it for every sign_inv variant (without BN the 8-layer sum-aggregation
+    phi produces unbounded activations)."""
     kw = dict(hidden=hidden, phi_out=phi_out, num_layers=num_layers, k=k,
               use_bn=True, dropout=dropout, rng=rng)
-    if kind == "gin":
-        return GINDeepSigns(**kw)
     if kind == "masked_gin":
         return MaskedGINDeepSigns(**kw)
-    items = {"gcn": 14, "gat": 14, "transformer": 16}
-    if kind in items:
+    if kind == "transformer":
         raise NotImplementedError(
-            f"sign_inv_net {kind!r} is not ported yet (ROADMAP.md queue 1 "
-            f"item {items[kind]})")
+            "sign_inv_net 'transformer' is not ported yet (ROADMAP.md queue "
+            "1 item 16)")
+    if kind in ("gin", "gat", "gcn"):
+        return GINDeepSigns(kind=kind, **kw)
     raise ValueError(f"unknown sign_inv_net {kind!r}")
 
 
-_NETS = {"GatedGCN": GatedGCNNet, "GIN": GINNet,
-         "Transformer": TransformerNet}
-_NOT_PORTED = {"GAT": 14, "PNA": 13}
+_NETS = {"GatedGCN": GatedGCNNet, "GIN": GINNet, "GAT": GATNet,
+         "PNA": PNANet, "Transformer": TransformerNet}
 
 
 def gnn_model(name: str, **net_params) -> nn.Module:
     """Model registry (the JAX package's `gnn_model`)."""
     if name in _NETS:
         return _NETS[name](**net_params)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md queue 1 item "
-            f"{_NOT_PORTED[name]})")
     raise KeyError(name)

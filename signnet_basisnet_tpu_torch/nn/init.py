@@ -3,6 +3,7 @@
 Port of signnet_basisnet_tpu/nn/init.py.  `Linear` draws weight and bias
 (none with `use_bias=False`) from uniform(+-1/sqrt(fan_in)), `Embedding`
 from N(0, 1), each from an explicit `torch.Generator` (`init_parameters`).
+`ACTIVATIONS` maps the JAX package's activation names to torch functions.
 Weights are [out, in] (the flax kernel is [in, out]; bridge.py transposes).
 
 `Linear` follows JAX's type promotion: an f32 input against bf16 weights
@@ -54,9 +55,16 @@ class Embedding(nn.Module):
         return self.weight[idx.long()]
 
 
+# the JAX package's activation names, as far as the ported layers use them
+ACTIVATIONS = {"relu": torch.relu, "elu": F.elu}
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Draw every Linear and Embedding of `module` from `generator`, in
-    module order."""
+    """Draw every parameter of `module` that a submodule's
+    `reset_parameters(generator)` draws (Linear, Embedding and the layers
+    with parameters of their own, such as GAT's attention vectors) from
+    `generator`, in module order."""
     for m in module.modules():
-        if isinstance(m, (Linear, Embedding)):
-            m.reset_parameters(generator)
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)

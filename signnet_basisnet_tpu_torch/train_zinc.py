@@ -6,10 +6,12 @@
 Port of the single-device path of signnet_basisnet_tpu/train_zinc.py: PE
 preprocessing -> model -> Adam + plateau LR -> epoch loop with val/test eval.
 The JAX package's configs are read as they are.  The run is on `cuda` unless
-`--device cpu` is given.  The nets are GIN, GatedGCN and Transformer, with
-the PE paths of the JAX train_zinc: the fixed-k SignNet (`sign_inv_net gin`)
-and the masked all-eigenvector one (`masked_gin`, on `data.pe_mode
-full_evd`), the sign baselines (`lap_method` sign_flip, abs_val,
+`--device cpu` is given.  The nets are the five ZINC nets, GIN, GatedGCN,
+GAT, PNA (its `model.extra` aggregators, scalers and pre/posttrans depths,
+`model.towers`, `model.gru`, `model.no_towers`, and the train split's
+degree statistics) and Transformer, with the PE paths of the JAX
+train_zinc: the fixed-k SignNet (`sign_inv_net gin` or `gat`) and the
+masked all-eigenvector one (`masked_gin`, on `data.pe_mode full_evd`), the sign baselines (`lap_method` sign_flip, abs_val,
 canonical, canonical_ref), the random-walk PE (`data.pe_mode rwpe`) and
 LSPE (`model.use_lspe`, GIN and GatedGCN only, ignored for the other nets
 as the JAX train_zinc ignores it) with the Laplacian-eigvec loss
@@ -19,14 +21,15 @@ embed the Laplacian eigenvectors as their random-walk PE: kept as the JAX
 train_zinc runs them.  Under `sign_flip` the eval batches flip too unless
 `model.eval_sign_flip` is false.  The aggregation backend is the config's
 (`data.agg_backend`): with `pallas_tile` on a tiled batch (`data.tile`)
-the GIN layers and the SignNet phi run the tile-local SpMM kernel on the
-card and the GatedGCN layers the fused gate kernel (the GatedGCN-LSPE
-layers run none); with `pallas_tile` or `tile_dense` the Transformer
-layers run the fused attention kernels there.  Their plain versions run
-only where the tensors lie on the CPU.  The shipped GatedGCN configs but
-the masked one set neither option, nor do the LapPE and LSPE configs: add
-`data.tile 256 data.agg_backend pallas_tile` (the Transformer's:
-`data.tile 256 data.agg_backend tile_dense`) to run their kernels.
+the GIN layers and the GIN SignNet phi run the tile-local SpMM kernel on
+the card and the GatedGCN layers the fused gate kernel (the GatedGCN-LSPE,
+GAT and PNA layers and the GAT phi run none: their JAX ops are XLA); with
+`pallas_tile` or `tile_dense` the Transformer layers run the fused
+attention kernels there.  Their plain versions run only where the tensors
+lie on the CPU.  The shipped GatedGCN, PNA and GAT configs but the masked
+ones set neither option, nor do the LapPE and LSPE configs: add `data.tile
+256 data.agg_backend pallas_tile` (the Transformer's: `data.tile 256
+data.agg_backend tile_dense`) to run their kernels.
 
 As in the JAX train_zinc: the real ZINC pickles are read where they exist under
 `data.data_dir` (`data.subset` picks the `.index` subsets), else the
@@ -38,9 +41,10 @@ batch` refuses them; `train.matmul_precision` maps to torch's float32
 matmul precision for the run (`MATMUL_PRECISION`).  The steps stay eager
 (a captured step is training/train.py: `capture_train_step`).
 
-Not ported yet, and refused: train.mp > 1, the PNA and GAT nets, the gcn,
-gat and transformer SignNet phis, remat and the full-graph transformer
-(ROADMAP.md queue 1).
+Not ported yet, and refused: train.mp > 1, the transformer SignNet phi,
+remat and the full-graph transformer (ROADMAP.md queue 1).  The gcn phi
+raises ValueError in both packages: the JAX one cannot broadcast its
+degree column over the [N, 2k, D] stack.
 """
 from __future__ import annotations
 
@@ -52,8 +56,9 @@ import time
 
 import torch
 
-from .data import (add_full_evd, add_lap_pe, add_rwpe, choose_budgets,
-                   iterate_graphbatches, load_zinc, pack_batches)
+from .data import (add_full_evd, add_lap_pe, add_rwpe, avg_degree_stats,
+                   choose_budgets, iterate_graphbatches, load_zinc,
+                   pack_batches)
 from .graph import from_arrays
 from .graph import segment as seg
 from .models import gnn_model
@@ -121,6 +126,38 @@ def _refuse_unported(cfg):
             f"(got {cfg.model.dropout}, {cfg.model.in_feat_dropout})")
 
 
+def uses_lspe(m) -> bool:
+    """LSPE is for GIN and GatedGCN (and the Laplacian-eigvec loss only
+    with it), as the JAX train_zinc gates them."""
+    return m.use_lspe and m.model in ("GIN", "GatedGCN")
+
+
+def net_params(cfg, train_graphs) -> dict:
+    """`gnn_model`'s keyword arguments for `cfg.model`, as the JAX
+    train_zinc builds them; PNA's `avg_d_log` comes from `train_graphs`."""
+    m = cfg.model
+    out = dict(
+        hidden_dim=m.hidden_dim, out_dim=m.out_dim, n_layers=m.n_layers,
+        readout=m.readout, in_feat_dropout=m.in_feat_dropout,
+        dropout=m.dropout, batch_norm=m.batch_norm, residual=m.residual,
+        edge_feat=m.edge_feat, pe_init=m.pe_init, lap_method=m.lap_method,
+        pos_enc_dim=m.pos_enc_dim, sign_inv_net=m.sign_inv_net,
+        sign_inv_layers=m.sign_inv_layers, phi_out_dim=m.phi_out_dim,
+        pe_aggregate=m.pe_aggregate, max_nodes=m.max_nodes, remat=m.remat,
+        seed=cfg.train.seed)
+    if uses_lspe(m):
+        out["use_lspe"] = True
+    if m.model in ("GAT", "Transformer"):
+        out["num_heads"] = m.num_heads
+    if m.model == "Transformer":
+        out.update(full_graph=m.full_graph, layer_norm=m.layer_norm)
+    if m.model == "PNA":
+        out.update(avg_d_log=avg_degree_stats(train_graphs)["log"],
+                   towers=m.towers, gru=m.gru, no_towers=m.no_towers,
+                   **m.extra)
+    return out
+
+
 def run(cfg, device: str = "cuda", log=print):
     """Train and evaluate as the config says; returns the FitResult.  The
     f32 matmul precision is `train.matmul_precision`'s (full f32 unless it
@@ -158,24 +195,8 @@ def _run(cfg, device, log):
         + (f", tiles of {tile}" if tile else ""))
 
     m = cfg.model
-    # LSPE is for GIN and GatedGCN, and the Laplacian-eigvec loss only with
-    # it, as the JAX train_zinc gates them
-    use_lspe = m.use_lspe and m.model in ("GIN", "GatedGCN")
-    use_lapeig = m.use_lapeig_loss and use_lspe
-    extra = {"use_lspe": True} if use_lspe else {}
-    if m.model == "Transformer":
-        extra.update(num_heads=m.num_heads, full_graph=m.full_graph,
-                     layer_norm=m.layer_norm)
-    model = gnn_model(
-        m.model, hidden_dim=m.hidden_dim, out_dim=m.out_dim,
-        n_layers=m.n_layers, readout=m.readout,
-        in_feat_dropout=m.in_feat_dropout, dropout=m.dropout,
-        batch_norm=m.batch_norm, residual=m.residual, edge_feat=m.edge_feat,
-        pe_init=m.pe_init, lap_method=m.lap_method,
-        pos_enc_dim=m.pos_enc_dim, sign_inv_net=m.sign_inv_net,
-        sign_inv_layers=m.sign_inv_layers, phi_out_dim=m.phi_out_dim,
-        pe_aggregate=m.pe_aggregate, max_nodes=m.max_nodes, remat=m.remat,
-        seed=cfg.train.seed, **extra).to(device)
+    use_lapeig = m.use_lapeig_loss and uses_lspe(m)
+    model = gnn_model(m.model, **net_params(cfg, splits["train"])).to(device)
     log(f"model: {m.model} params={count_params(model)} device={device}")
 
     cdtype = (getattr(torch, cfg.train.compute_dtype)

@@ -318,7 +318,9 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
     `fit` resumes.
 
     Each history record also holds `train_time` (seconds from the epoch's
-    start to its last train metric on the host) and `train_steps`.
+    start to its last train metric on the host) and `train_steps`, and
+    `eval_time` and `eval_steps`: the epoch's val (and test) evaluation,
+    its seconds to the metrics on the host.
     """
     sched = ReduceLROnPlateau(factor=lr_reduce_factor,
                               patience=lr_schedule_patience,
@@ -343,16 +345,23 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
             log(f"resumed from checkpoint epoch {last} (lr {sched.lr:.2e})")
 
     draws0 = 0 if eval_flip_rng is None else eval_flip_rng.draws
+    # the eval steps and their seconds (to the metrics on the host) since
+    # the epoch began
+    ev = {"steps": 0, "time": 0.0}
 
     def run_eval(batches):
         nonlocal eval_steps
+        t = time.time()
         out = evaluate(eval_step, batches, eval_flip_rng)
         eval_steps += out["steps"]
+        ev["steps"] += out["steps"]
+        ev["time"] += time.time() - t
         return out
 
     try:
         for epoch in range(start_epoch, epochs):
             te0 = time.time()
+            ev.update(steps=0, time=0.0)
             ms = [train_step(gb, sched.lr) for gb in train_batches_fn(epoch)]
             nb = len(ms)
             train_steps += nb
@@ -376,7 +385,8 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
             rec = dict(epoch=epoch, lr=lr_now, train_loss=train_loss,
                        train_mae=train_mae, val_loss=val["loss"],
                        val_mae=val["mae"], time=time.time() - te0,
-                       train_time=train_time, train_steps=nb)
+                       train_time=train_time, train_steps=nb,
+                       eval_time=ev["time"], eval_steps=ev["steps"])
             history.append(rec)
             if epoch % log_every == 0:
                 mem = _peak_mem_mb()

@@ -259,7 +259,7 @@ def test_train_zinc_runs_the_flagship_with_the_pe_options_on_cpu(tmp_path,
 
 
 @pytest.mark.parametrize("override,match", [
-    (["train.mp", "2"], "item 20"), (["model.model", "PNA"], "item 13"),
+    (["train.mp", "2"], "item 20"), (["model.remat", "true"], "item 16"),
     (["model.model", "Transformer", "model.full_graph", "true"], "item 10")])
 def test_train_zinc_refuses_unported_options(override, match):
     cfg = load_config("configs/gin_zinc_signinv_gin.json", override + [
@@ -268,3 +268,22 @@ def test_train_zinc_refuses_unported_options(override, match):
         "model.sign_inv_layers", "1", "out_dir", ""])
     with pytest.raises(NotImplementedError, match=match):
         train_zinc.run(cfg, device="cpu", log=lambda m: None)
+
+
+@pytest.mark.parametrize("config", [
+    "pna_zinc_nope", "pna_zinc_lappe", "pna_zinc_signinv_gin",
+    "pna_zinc_signinv_masked", "gat_zinc_nope", "gat_zinc_lappe",
+    "gat_zinc_signinv_gin"])
+def test_train_zinc_runs_the_pna_and_gat_configs_on_cpu(config, tmp_path):
+    """Each PNA and GAT config as shipped (the masked PNA one on its full
+    EVDs, tiled, `tile_dense`), cut to width 8, one layer, one SignNet
+    layer, 8 graphs a split and one epoch."""
+    logs = []
+    cfg = load_config(f"configs/{config}.json", [
+        "train.epochs", "1", "train.batch_size", "8", "data.synth_train",
+        "8", "data.synth_eval", "8", "model.n_layers", "1",
+        "model.hidden_dim", "8", "model.out_dim", "8",
+        "model.sign_inv_layers", "1", "out_dir", str(tmp_path)])
+    res = train_zinc.run(cfg, device="cpu", log=logs.append)
+    assert np.isfinite(res.val_mae) and np.isfinite(res.test_mae)
+    assert any(f"model: {cfg.model.model} " in m for m in logs)
