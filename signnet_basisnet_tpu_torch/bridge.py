@@ -10,12 +10,17 @@ them into the port's parameters and buffers:
 - `Embedding` tables -> `weight`;
 - GAT's attention vectors `attn_src`/`attn_dst` (1, H, F) as they are, and
   the bare `bias` of GAT and GCN (beside their `weight/{kernel,bias}`
-  Linear) -> the layer's `bias`.
+  Linear) -> the layer's `bias`;
+- the GIN-family convs' learnt scalar `eps` as it is.
 
-Module paths map one to one, except that flax names a GIN layer's update MLP
-`mlp_i` beside the layer while the port nests it as `layer_i.mlp` (`conv_i.mlp`
-inside the SignNet phi).  Every flax leaf must land on a tensor of the same
-size and every port tensor must be set, or it raises.
+Module paths map one to one (flax's OptimizedLSTMCell's eight Linears
+`ii`, `if`, `ig`, `io`, `hi`, `hf`, `hg`, `ho` are the port's LSTMCell's),
+except where flax makes a GIN layer's update net beside the layer: the ZINC
+nets' `mlp_i` (top level, or under the DeepSigns phi `enc`) is the port's
+`layer_i.mlp` (`conv_i.mlp` inside the phi), the PyG GNN's `conv_i_nn`
+is `conv_i.mlp`, and a GIN layer built alone names it `update_net`, the
+port `mlp`.  Every flax leaf must land on a tensor of the same size and
+every port tensor must be set, or it raises.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias", "mean": "running_mean", "var": "running_var",
-         "attn_src": "attn_src", "attn_dst": "attn_dst"}
+         "attn_src": "attn_src", "attn_dst": "attn_dst", "eps": "eps"}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -45,9 +50,14 @@ def torch_name(path: tuple) -> str:
     parts = list(path[:-1])
     for i, p in enumerate(parts):
         m = re.fullmatch(r"mlp_(\d+)", p)
-        if m:
-            conv = "conv" if i > 0 and parts[i - 1] == "enc" else "layer"
+        if m and (i == 0 or parts[i - 1] == "enc"):
+            conv = "layer" if i == 0 else "conv"
             parts[i] = f"{conv}_{m.group(1)}.mlp"
+        m = re.fullmatch(r"conv_(\d+)_nn", p)
+        if m:
+            parts[i] = f"conv_{m.group(1)}.mlp"
+        if p == "update_net":
+            parts[i] = "mlp"
     return ".".join(parts + [_LEAF[path[-1]]])
 
 

@@ -43,6 +43,13 @@ def choose_budgets(graphs: Sequence[dict], batch_graphs: int,
     return rnd(num_nodes, align), rnd(num_edges, align), batch_graphs + 1
 
 
+def code_columns(graphs: Sequence[dict], key: str) -> int:
+    """The code columns of `key` in the graphs (F of [n, F] codes, 1 for
+    1-D ones): what a net's DiscreteEncoders are built for."""
+    a = np.asarray(graphs[0][key])
+    return int(a.shape[1]) if a.ndim == 2 else 1
+
+
 def pack_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
                  num_graphs: int, shuffle: bool = False,
                  seed: int = 0, drop_overflow: bool = True,

@@ -1,10 +1,14 @@
-from .conv import (GATConv, GCNConv, GatedGCNLSPELayer, GINConv,
+from .baselines import GINEBondConv, NetGINE
+from .conv import (GATConv, GCNConv, GatedGCNLSPELayer, GINConv, GINEConv,
                    GraphTransformerAttention, GraphTransformerLayer,
-                   PNALayer, PNANoTowersLayer, PNATower, neighbor_sum,
-                   node_mask_like, pna_aggregate, pna_scale, pool_any)
+                   MaskedGINConv, MaskedGINEConv, PNALayer,
+                   PNANoTowersLayer, PNATower, SimplifiedPNAConv,
+                   neighbor_sum, node_mask_like, pna_aggregate, pna_scale,
+                   pool_any)
+from .gnn import GNN, SignNetGNN, make_conv, set_attention_dropout
 from .pe import apply_lap_method
-from .signnet import (GINDeepSigns, KChannelGNN, MaskedGINDeepSigns,
-                      sign_fuse, sign_unfuse)
+from .signnet import (GNN3d, GINDeepSigns, KChannelGNN, MaskedGINDeepSigns,
+                      SignNet, SignPlus, sign_fuse, sign_unfuse)
 from .zinc_models import (GATNet, GINNet, PNANet, TransformerNet, ZincNet,
                           gnn_model, lapeig_loss, normalize_p,
                           sign_inv_module)

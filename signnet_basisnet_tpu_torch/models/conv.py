@@ -1,16 +1,20 @@
-"""Graph convolution on padded batched graphs: the GIN, GatedGCN,
+"""Graph convolution on padded batched graphs: the GIN family, GatedGCN,
 Transformer, GCN, GAT and PNA layers.
 
-Port of signnet_basisnet_tpu/models/conv.py:26-58,104-125 (`neighbor_sum`,
-`node_mask_like`, `pool_any`, `GINConv`), :216-244 (`GCNConv`), :247-309
-(`GATConv`), :312-381 (`GatedGCNLayer`), :384-447 (`GatedGCNLSPELayer`),
-:450-649 (`PNA_EPS`, `pna_aggregate`, `pna_scale`, `PNATower`, `PNALayer`,
-`PNANoTowersLayer`) and :682-811 (`GraphTransformerAttention`,
-`GraphTransformerLayer`, sparse path).  GCN, GAT and PNA reach no kernel:
-their JAX layers are XLA segment ops, so here they are plain torch ops
-over `graph.segment`.  The other layers of that file (GINE, the masked GIN
-and GINE, the simplified PNA) and the full-graph transformer are later
-slices of the port (ROADMAP.md queue 1).
+Port of signnet_basisnet_tpu/models/conv.py:26-58,61-125 (`neighbor_sum`,
+`src_features`, `node_mask_like`, `pool_any`, `GINConv`), :128-213
+(`GINEConv`, `MaskedGINConv`, `MaskedGINEConv`), :216-244 (`GCNConv`),
+:247-309 (`GATConv`), :312-381 (`GatedGCNLayer`), :384-447
+(`GatedGCNLSPELayer`), :450-649 (`PNA_EPS`, `pna_aggregate`, `pna_scale`,
+`PNATower`, `PNALayer`, `PNANoTowersLayer`), :652-679
+(`SimplifiedPNAConv`) and :682-811 (`GraphTransformerAttention`,
+`GraphTransformerLayer`, sparse path).  GCN, GAT, PNA, the GINE convs and
+the simplified PNA reach no kernel: their JAX layers are XLA segment ops,
+so here they are plain torch ops over `graph.segment` (the GIN convs'
+`neighbor_sum` reaches K1 only on a tiled batch under 'pallas_tile').
+The dense-batch branches (`DenseGraphBatch`) and the full-graph
+transformer are later slices of the port (ROADMAP.md queue 1): a layer
+given anything but a flat `GraphBatch` refuses it (`refuse_dense`).
 """
 from __future__ import annotations
 
@@ -21,10 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..graph import CSR_KEYS, segment as seg
+from ..graph import CSR_KEYS, GraphBatch, segment as seg
 from ..nn.dropout import Dropout
-from ..nn.init import ACTIVATIONS, Linear
-from ..nn.mlp import MLP
+from ..nn.init import ACTIVATIONS, Embedding, Linear
+from ..nn.mlp import MLP, ElementsMLP, MaskedMLP
 from ..nn.norm import MaskedBatchNorm, MaskedLayerNorm
 from ..ops import (edge_softmax_attention_reference,
                    edge_softmax_attention_tiled, gatedgcn_gate_reference,
@@ -65,6 +69,23 @@ def refuse_halo(gb):
             "(ROADMAP.md queue 1 item 20)")
 
 
+def refuse_dense(gb):
+    """Dense batches (the JAX `DenseGraphBatch`: [G, M, M] adjacency, [G,
+    M, ...] nodes) are not ported: a layer with a dense branch refuses
+    anything but a flat GraphBatch."""
+    if not isinstance(gb, GraphBatch):
+        raise NotImplementedError(
+            f"dense batches ({type(gb).__name__}) are not ported yet "
+            "(ROADMAP.md queue 1 item 19)")
+
+
+def src_features(x, gb):
+    """Rows of ``x`` addressable by ``gb.senders``: on a plain batch ``x``
+    itself (the model-parallel halo rows are refused, item 20)."""
+    refuse_halo(gb)
+    return x
+
+
 def batch_csr(gb):
     """The tiled batch's (dst_ptr, src_order, src_ptr), made by
     `graph.from_arrays`."""
@@ -86,17 +107,93 @@ def node_mask_like(gb, x):
 
 
 class GINConv(nn.Module):
-    """x' = mlp(x + sum_j x_j): DGL GINConv(MLP, 'sum') (the JAX GINConv with
-    learn_eps=False, the only form on the ported path)."""
+    """x' = mlp((1 + eps) x + sum_j x_j).  `learn_eps=False`: DGL
+    GINConv(MLP, 'sum'), eps = 0; `learn_eps=True`: PyG GINConv(train_eps),
+    a learnt scalar `eps` starting at 0.  The update net is `mlp` (flax's
+    `conv_i_nn` beside the layer in the PyG GNN, `mlp_i` in the ZINC
+    nets)."""
 
-    def __init__(self, mlp: nn.Module):
+    def __init__(self, mlp: nn.Module, learn_eps: bool = False):
         super().__init__()
         self.mlp = mlp
+        self.eps = nn.Parameter(torch.zeros(())) if learn_eps else None
 
     def forward(self, gb, x):
-        out = x + neighbor_sum(x, gb)
+        refuse_dense(gb)
+        agg = neighbor_sum(x, gb)
+        out = x + agg if self.eps is None else (1.0 + self.eps) * x + agg
         # BN inside the MLP must ignore padding rows
         return self.mlp(out, mask=node_mask_like(gb, out))
+
+
+def _edge_sum(gb, msg):
+    return seg.aggregate_edges(msg, gb.receivers, gb.num_nodes,
+                               edge_mask=gb.edge_mask)
+
+
+class GINEConv(nn.Module):
+    """x' = mlp((1 + eps) x + sum_j relu(x_j + e_ij)): PyG GINEConv with a
+    learnt `eps` (or 0 without `learn_eps`)."""
+
+    def __init__(self, mlp: nn.Module, learn_eps: bool = True):
+        super().__init__()
+        self.mlp = mlp
+        self.eps = nn.Parameter(torch.zeros(())) if learn_eps else None
+
+    def forward(self, gb, x, edge_attr):
+        refuse_dense(gb)
+        src = src_features(x, gb).index_select(0, gb.senders.long())
+        agg = _edge_sum(gb, torch.relu(src + edge_attr))
+        out = x + agg if self.eps is None else (1.0 + self.eps) * x + agg
+        return self.mlp(out, mask=node_mask_like(gb, out))
+
+
+class MaskedGINConv(nn.Module):
+    """The SignNet phi conv: (1 + eps) x + sum_j x_j through a two-layer
+    MaskedMLP `nn` (no final activation), which zeroes the masked (node, k)
+    slots.  x is [N, D] or [N, K, D], mask [N] or [N, K]."""
+
+    def __init__(self, in_features: int, out: int,
+                 hidden: Optional[int] = None):
+        super().__init__()
+        self.eps = nn.Parameter(torch.zeros(()))
+        self.nn = MaskedMLP(in_features, out, num_layers=2,
+                            with_final_activation=False, hidden=hidden)
+
+    def forward(self, gb, x, mask=None):
+        refuse_dense(gb)
+        out = (1.0 + self.eps) * x + neighbor_sum(x, gb)
+        return self.nn(out, mask=mask)
+
+
+class MaskedGINEConv(nn.Module):
+    """The GINE phi conv: (1 + eps) x + sum_j relu(x_j + e_ij), the masked
+    slots zeroed, through the MaskedMLP `nn`.  x [N, D] or [N, K, D];
+    edge_attr [E, D] broadcasts over K.  Layer 0 of GNN3d has D = 1 against
+    `in_features`-wide encoded edges, which broadcasts on purpose; any
+    other mismatch of widths raises ValueError."""
+
+    def __init__(self, in_features: int, out: int,
+                 hidden: Optional[int] = None):
+        super().__init__()
+        self.eps = nn.Parameter(torch.zeros(()))
+        self.nn = MaskedMLP(in_features, out, num_layers=2,
+                            with_final_activation=False, hidden=hidden)
+
+    def forward(self, gb, x, edge_attr, mask=None):
+        refuse_dense(gb)
+        src = src_features(x, gb).index_select(0, gb.senders.long())
+        e = edge_attr
+        if src.dim() == e.dim() + 1:
+            e = e[:, None, :]
+        if src.shape[-1] not in (1, e.shape[-1]):
+            raise ValueError(
+                f"MaskedGINEConv feature mismatch: x D={src.shape[-1]} "
+                f"vs edge D={e.shape[-1]} (only D=1 may broadcast)")
+        out = (1.0 + self.eps) * x + _edge_sum(gb, torch.relu(src + e))
+        if mask is not None:
+            out = out * mask[..., None].to(out.dtype)
+        return self.nn(out, mask=mask)
 
 
 class GCNConv(nn.Module):
@@ -526,6 +623,42 @@ class PNANoTowersLayer(nn.Module):
         if self.residual and h.shape == out.shape:
             out = h + out
         return out
+
+
+class SimplifiedPNAConv(nn.Module):
+    """PyG-style simplified PNA: `pre_nn` on [x_i, x_j, e] per edge, the
+    `aggregators` over each destination's real edges, an in-degree
+    embedding `deg_embedder` (degrees clipped to max_degree - 1), then
+    `post_nn` on [x, aggregates, degree embedding].  `edge_features` is
+    the width of edge_attr (0 without)."""
+
+    def __init__(self, in_features: int, features: int,
+                 aggregators: Sequence[str] = ("mean",),
+                 max_degree: int = 13, edge_features: int = 0):
+        super().__init__()
+        self.aggregators = tuple(aggregators)
+        self.max_degree = max_degree
+        nin = in_features
+        self.pre_nn = ElementsMLP(2 * nin + edge_features, nin, num_layers=2,
+                                  with_final_activation=False)
+        self.deg_embedder = Embedding(max_degree, nin)
+        self.post_nn = ElementsMLP((2 + len(self.aggregators)) * nin,
+                                   features, num_layers=2,
+                                   with_final_activation=False)
+
+    def forward(self, gb, x, edge_attr=None):
+        refuse_dense(gb)
+        x_src = src_features(x, gb)
+        z = [x.index_select(0, gb.receivers.long()),
+             x_src.index_select(0, gb.senders.long())]
+        if edge_attr is not None:
+            z.append(edge_attr)
+        msg = self.pre_nn(torch.cat(z, dim=-1))
+        aggs, _ = pna_aggregate(msg, gb, self.aggregators)
+        deg = seg.segment_sum(gb.edge_mask, gb.receivers, gb.num_nodes)
+        deg_emb = self.deg_embedder(
+            torch.clamp(deg.long(), 0, self.max_degree - 1))
+        return self.post_nn(torch.cat([x] + aggs + [deg_emb], dim=-1))
 
 
 class GraphTransformerAttention(nn.Module):

@@ -1,12 +1,20 @@
-"""SignNet's DeepSigns encoders with a GIN or GAT phi.
+"""SignNet encoders: the Alchemy/GINE SignNet and the DeepSigns ones.
 
 Port of signnet_basisnet_tpu/models/signnet.py:38-48 (`sign_fuse`,
-`sign_unfuse`), :137-182 (`_KChannelGNN`, gin and gat kinds), :185-210
-(`GINDeepSigns`, fixed k) and :213-239 (`MaskedGINDeepSigns`, all
-eigenvectors): f(v_1..v_k) = rho([phi(v_i) + phi(-v_i)]_i), with the
-(+v, -v) pair fused along the k axis into one phi call over [N, 2k, D].
-The gcn kind is refused: the JAX package's GCN phi multiplies the
-[N, 2k, D] stack by a [N, 1] degree column and raises on any batch.
+`sign_unfuse`), :51-134 (`GNN3d`, `SignNet`, `SignPlus`), :137-182
+(`_KChannelGNN`, gin and gat kinds), :185-210 (`GINDeepSigns`, fixed k)
+and :213-239 (`MaskedGINDeepSigns`, all eigenvectors): f(v_1..v_k) =
+rho([phi(v_i) + phi(-v_i)]_i), with the (+v, -v) pair fused along the k
+axis into one phi call over [N, 2k, D].
+
+`SignNet` (the Alchemy and GINE-ZINC encoder) runs over all of a batch's
+eigenvector slots with the batch's `eig_mask`: `GNN3d`, a stack of masked
+GIN(E) convs, as phi; the masked set transformer (nn/set_transformer.py)
+as rho; and, unless `ignore_eigval`, a MaskedMLP `eigen_encoder` of each
+node's graph's eigenvalues as rho's positional input.
+The gcn kind of the DeepSigns phi is refused: the JAX package's GCN phi
+multiplies the [N, 2k, D] stack by a [N, 1] degree column and raises on
+any batch.
 """
 from __future__ import annotations
 
@@ -14,9 +22,12 @@ import torch
 from torch import nn
 
 from ..nn.dropout import Dropout
-from ..nn.mlp import MLP
+from ..nn.encoders import DiscreteEncoder
+from ..nn.mlp import MLP, MaskedMLP
 from ..nn.norm import MaskedBatchNorm
-from .conv import GATConv, GINConv, node_mask_like
+from ..nn.set_transformer import SetTransformer
+from .conv import (GATConv, GINConv, MaskedGINConv, MaskedGINEConv,
+                   node_mask_like)
 
 # the JAX GAT phi's heads, averaged in each layer
 PHI_GAT_HEADS = 4
@@ -32,6 +43,104 @@ def sign_fuse(x, mask=None):
 def sign_unfuse(y):
     k = y.shape[-2] // 2
     return y[..., :k, :] + y[..., k:, :]
+
+
+class GNN3d(nn.Module):
+    """`n_layer` masked GIN (`MaskedGINConv`) or GINE (`MaskedGINEConv`)
+    convs `conv_i` over x [N, K, D] with mask [N, K]; after each, x times
+    the mask, the masked BatchNorm `norm_i`, ReLU and the residual (the sum
+    of the earlier layers' outputs, from 0).  Under GINE each layer encodes
+    the batch's edge codes with its own `edge_enc_i` (`edge_vocab` values,
+    `edge_code_dims` code columns) to n_out features, against which layer
+    0's D = 1 input broadcasts."""
+
+    GNN_TYPES = ("MaskedGINConv", "MaskedGINEConv")
+
+    def __init__(self, in_features: int, n_out: int, n_layer: int,
+                 gnn_type: str = "MaskedGINConv", edge_vocab: int = 500,
+                 edge_code_dims: int = 1):
+        super().__init__()
+        if gnn_type not in self.GNN_TYPES:
+            raise ValueError(f"unsupported GNN3d gnn_type {gnn_type!r}")
+        self.n_layer = n_layer
+        self.gine = gnn_type == "MaskedGINEConv"
+        d_in = in_features
+        for i in range(n_layer):
+            if self.gine:
+                self.add_module(f"edge_enc_{i}", DiscreteEncoder(
+                    n_out, max_num_values=edge_vocab,
+                    num_features=edge_code_dims))
+                # the encoded edges set the width the MLP takes
+                conv = MaskedGINEConv(n_out, n_out, hidden=n_out)
+            else:
+                conv = MaskedGINConv(d_in, n_out, hidden=n_out)
+            self.add_module(f"conv_{i}", conv)
+            self.add_module(f"norm_{i}", MaskedBatchNorm(n_out))
+            d_in = n_out
+
+    def forward(self, gb, x, mask=None):
+        prev = 0.0
+        for i in range(self.n_layer):
+            conv = getattr(self, f"conv_{i}")
+            if self.gine:
+                e = getattr(self, f"edge_enc_{i}")(gb.edge_feat)
+                x = conv(gb, x, e, mask=mask)
+            else:
+                x = conv(gb, x, mask=mask)
+            if mask is not None:
+                x = x * mask[..., None].to(x.dtype)
+            x = torch.relu(getattr(self, f"norm_{i}")(x, mask=mask))
+            x = x + prev
+            prev = x
+        return x
+
+
+class SignNet(nn.Module):
+    """[N, K] eigenvector entries -> [N, n_hid] sign-invariant PE: phi
+    (GNN3d) over the sign-fused [N, 2K, 1] stack, phi(v) + phi(-v), then
+    rho (SetTransformer, `nl_rho` layers) with the encoded eigenvalues
+    (`eigen_encoder`, absent with `ignore_eigval`) as positions.  The
+    attention dropout draws from `rng`."""
+
+    def __init__(self, n_hid: int, nl_phi: int, nl_rho: int = 2,
+                 ignore_eigval: bool = False,
+                 phi_gnn_type: str = "MaskedGINConv", edge_vocab: int = 500,
+                 edge_code_dims: int = 1, rng=None):
+        super().__init__()
+        self.ignore_eigval = ignore_eigval
+        if not ignore_eigval:
+            self.eigen_encoder = MaskedMLP(1, n_hid, num_layers=2)
+        self.phi = GNN3d(1, n_hid, nl_phi, gnn_type=phi_gnn_type,
+                         edge_vocab=edge_vocab,
+                         edge_code_dims=edge_code_dims)
+        self.rho = SetTransformer(n_hid, nl_rho, rng=rng)
+
+    def forward(self, gb):
+        x = gb.eigvecs[..., None]                       # N K 1
+        mask = gb.eig_mask                              # N K
+        if self.ignore_eigval:
+            pos = 0.0
+        else:
+            rows = gb.eigvals.index_select(0, gb.graph_id.long())
+            pos = self.eigen_encoder(rows[..., None], mask=mask)
+        x2, m2 = sign_fuse(x, mask)
+        x = sign_unfuse(self.phi(gb, x2, mask=m2))
+        return self.rho(x, pos, mask=mask)
+
+
+class SignPlus(nn.Module):
+    """phi(v) + phi(-v) for any inner module `model`; extra features x that
+    are not negated are concatenated to v first."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, v, x=None):
+        if x is None:
+            return self.model(v) + self.model(-v)
+        return (self.model(torch.cat([v, x], dim=-1))
+                + self.model(torch.cat([-v, x], dim=-1)))
 
 
 class KChannelGNN(nn.Module):

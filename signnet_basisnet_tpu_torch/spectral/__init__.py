@@ -1,4 +1,5 @@
 from .laplacian import (adjacency_dense_np, sym_laplacian_np,
                         unnormalized_laplacian_np)
+from .projectors import round_eigvals
 from .eigh import (canonical_sign_np, eigh_np, full_evd_np, lap_pe_np,
                    rwpe_np)

@@ -64,7 +64,7 @@ from .graph import segment as seg
 from .models import gnn_model
 from .training import (Checkpointer, adam, build_steps, count_params, fit,
                        load_config, make_lapeig_loss_fn, make_zinc_predict)
-from .utils import RunLogger
+from .utils import RunLogger, card_or_cpu
 
 # train.matmul_precision (the names jax.default_matmul_precision takes, as
 # the JAX train_zinc passes them) -> torch.set_float32_matmul_precision: full
@@ -163,10 +163,7 @@ def run(cfg, device: str = "cuda", log=print):
     f32 matmul precision is `train.matmul_precision`'s (full f32 unless it
     says otherwise) while the run lasts."""
     _refuse_unported(cfg)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                           "the CPU")
+    device = card_or_cpu(device)
     with matmul_precision(cfg.train.matmul_precision):
         return _run(cfg, device, log)
 

@@ -1,10 +1,12 @@
 """Training harness: train/eval steps and the epoch loop.
 
-Port of signnet_basisnet_tpu/training/train.py for the ZINC path:
-`l1_graph_loss`, `make_zinc_predict` (with `compute_dtype` and `return_p`),
-`make_lapeig_loss_fn`, `build_steps` (train/eval, `eval_bn_mode`, a
-`loss_fn`), `evaluate` and `fit` (with checkpoints and resume,
-training/checkpoint.py, and the eval-time sign flips).  The model and the
+Port of signnet_basisnet_tpu/training/train.py: `l1_graph_loss`,
+`make_zinc_predict` (with `compute_dtype` and `return_p`),
+`make_module_predict` (nets called as `model(gb)`: the Alchemy and GINE
+nets), `make_lapeig_loss_fn`, `build_steps` (train/eval, `eval_bn_mode`,
+a `loss_fn`), `evaluate`, `fit` (with checkpoints and resume,
+training/checkpoint.py, the eval-time sign flips and `best_val_test`) and
+the k-fold loop (`k_fold_split`, `KFoldResult`, `run_k_fold`).  The model and the
 optimizer hold the state that the JAX `TrainState` carries; the LR is a
 run-time scalar set before every optimizer step.
 
@@ -42,7 +44,7 @@ from ..nn.dropout import Dropout
 from ..utils.profiling import device_memory_stats
 from .checkpoint import load_train_state, train_state
 from .metrics import masked_l1
-from .optim import ReduceLROnPlateau, set_lr
+from .optim import ReduceLROnPlateau, StepLR, set_lr
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -91,6 +93,16 @@ def make_zinc_predict(model: torch.nn.Module, lap_method: str = "none",
             score, p = out
             return score.float(), None if p is None else p.float()
         return out.float()
+
+    return predict
+
+
+def make_module_predict(model: torch.nn.Module) -> Callable:
+    """predict(gb, flip_rng=None) -> model(gb), for nets whose forward
+    takes the batch alone (no PE handling, no sign flips)."""
+
+    def predict(gb, flip_rng=None):
+        return model(gb)
 
     return predict
 
@@ -300,11 +312,15 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
         lr_reduce_factor=0.5, lr_schedule_patience=25, min_lr=1e-6,
         max_time_hours=12.0, log_every=5, logger=None, checkpointer=None,
         resume: bool = False, model=None, optimizer=None,
-        eval_flip_rng=None) -> FitResult:
+        eval_flip_rng=None, best_val_test: bool = False) -> FitResult:
     """Epoch loop with plateau LR, min-lr stop, wall-clock budget and a
     graceful KeyboardInterrupt: the JAX `fit`.  The best epoch is the one
     of least val loss; its val MAE is reported (they differ under an
     auxiliary loss).
+
+    `test_mae` is the final model's test MAE (the ZINC protocol), or with
+    `best_val_test` the test MAE at the best-val epoch (the Alchemy
+    protocol); `best_val_test_mae` is that one either way.
 
     With `eval_flip_rng` (the JAX `eval_sign_flip`) every val and test
     batch draws its own sign flips from that generator; `eval_flip_draws`
@@ -409,9 +425,71 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
     val = run_eval(val_batches_fn())
     test = (run_eval(test_batches_fn()) if test_batches_fn
             else {"mae": float("nan")})
-    return FitResult(history=history, test_mae=test["mae"], val_mae=val["mae"],
+    test_mae = best_test if best_val_test else test["mae"]
+    return FitResult(history=history, test_mae=test_mae, val_mae=val["mae"],
                      epochs_run=epochs_run, wall_time=time.time() - t0,
                      best_val_mae=best_val_mae, best_val_test_mae=best_test,
                      train_steps=train_steps, eval_steps=eval_steps,
                      eval_flip_draws=(0 if eval_flip_rng is None
                                       else eval_flip_rng.draws - draws0))
+
+
+# --------------------------------------------------------------- k-fold
+
+def k_fold_split(n: int, k: int = 10, seed: int = 0):
+    """Shuffled k-fold index split: a list of (train_idx, test_idx)."""
+    rng = np.random.default_rng(seed)
+    folds = np.array_split(rng.permutation(n), k)
+    return [(np.concatenate([folds[j] for j in range(k) if j != i]),
+             folds[i]) for i in range(k)]
+
+
+@dataclass
+class KFoldResult:
+    fold_best: list          # best metric per fold
+    mean: float
+    std: float
+    curve_mean: float        # metric at the best epoch of the averaged curve
+    curve_std: float
+    best_epoch: int
+
+
+def run_k_fold(graphs, make_steps, make_batches, *, k=10, epochs=100,
+               init_lr=1e-3, lr_decay=0.5, lr_patience=50, seed=0,
+               higher_is_better=False, logger=None) -> KFoldResult:
+    """k-fold cross-validation: for each fold, `make_steps(fold)` ->
+    (train_step, eval_step) on a fresh model (`build_steps`' steps),
+    `make_batches(graph_subset, shuffle_seed_or_None)` -> batches; StepLR
+    (`lr_patience` epochs, `lr_decay`) from `init_lr`; the test MAE after
+    every epoch.  Reports both aggregations of the JAX loop: the mean of
+    the per-fold best metrics, and the best epoch of the fold-averaged
+    curve."""
+    log = logger or (lambda msg: print(msg, flush=True))
+    curves, fold_best = [], []
+    sign = 1.0 if higher_is_better else -1.0
+    for fold, (tr_idx, te_idx) in enumerate(k_fold_split(len(graphs), k,
+                                                         seed)):
+        train_graphs = [graphs[i] for i in tr_idx]
+        test_graphs = [graphs[i] for i in te_idx]
+        train_step, eval_step = make_steps(fold)
+        sched = StepLR(step_size=lr_patience, gamma=lr_decay, lr=init_lr)
+        curve, best = [], -np.inf
+        for epoch in range(epochs):
+            for gb in make_batches(train_graphs, epoch):
+                train_step(gb, sched.lr)
+            sched.step()
+            perf = evaluate(eval_step, make_batches(test_graphs, None))["mae"]
+            curve.append(perf)
+            best = max(best, sign * perf)
+        fold_best.append(sign * best)
+        curves.append(curve)
+        log(f"fold {fold}: best {sign * best:.4f}")
+    curves = np.asarray(curves)            # [k, epochs]
+    avg = curves.mean(axis=0)
+    best_idx = int((sign * avg).argmax())
+    fb = np.asarray(fold_best)
+    return KFoldResult(fold_best=list(map(float, fb)),
+                       mean=float(fb.mean()), std=float(fb.std()),
+                       curve_mean=float(avg[best_idx]),
+                       curve_std=float(curves.std(axis=0)[best_idx]),
+                       best_epoch=best_idx)

@@ -1,4 +1,4 @@
-from .checks import nan_filled_empty
+from .checks import card_or_cpu, nan_filled_empty
 from .logging import RunLogger
 from .profiling import (Throughput, card_label, cuda_event_ms,
                         device_memory_stats, log_memory, timed, trace)

@@ -1,4 +1,5 @@
-"""Helpers for checking kernels that allocate their outputs unfilled."""
+"""Checks: the run's device (`card_or_cpu`), and NaN-filled allocation for
+checking kernels that allocate their outputs unfilled."""
 from __future__ import annotations
 
 import contextlib
@@ -22,3 +23,13 @@ def nan_filled_empty():
         yield
     finally:
         torch.empty, torch.empty_like = empty, empty_like
+
+
+def card_or_cpu(name: str) -> torch.device:
+    """The entry points' device: `cuda` needs a card and raises without
+    one; `cpu` is taken only when asked for."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu "
+                           "(device='cpu') to run on the CPU")
+    return device

@@ -278,8 +278,9 @@ def test_bench_ops_main_runs_every_section(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, bench_ops included, imports with `jax`
-    unimportable, and loads nothing of the JAX package."""
+    """Every module of the port, bench_ops and the Alchemy and GINE-ZINC
+    slice's modules included, imports with `jax` unimportable, and loads
+    nothing of the JAX package."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -290,6 +291,10 @@ for name in names:
     importlib.import_module(name)
 assert "signnet_basisnet_tpu_torch.bench_ops" in names, names
 assert "signnet_basisnet_tpu_torch.ops.spmm_flat" in names, names
+for new in ("train_alchemy", "train_zinc_gine", "models.gnn",
+            "models.baselines", "nn.encoders", "nn.set_transformer",
+            "nn.set2set", "data.alchemy", "spectral.projectors"):
+    assert "signnet_basisnet_tpu_torch." + new in names, (new, names)
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
        m == "signnet_basisnet_tpu" or m.startswith("signnet_basisnet_tpu.")
        or m.split(".")[0] in ("jax", "jaxlib", "flax"))]
@@ -301,7 +306,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30
+    assert int(proc.stdout.split()[-1]) >= 38
 
 
 def test_native_argtypes_match_the_c_signature():

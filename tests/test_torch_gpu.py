@@ -32,6 +32,10 @@ rounding (2**-7 relative); a non-finite row of x reaches only the rows of
 the counted edges that read it; every row is written over NaN-filled
 memory, with narrowed tile ranges, an empty tile and long rows that take
 the kernel's probe rounds and several chunks; a call is one device kernel.
+The Alchemy and GINE-ZINC nets' train and eval steps at published widths
+(both phi types) launch none of K1-K5, and the set transformer's attention
+dropout draws a fresh mask each eager step and each replay of a captured
+step from the net's generator.
 """
 import importlib
 
@@ -855,3 +859,74 @@ def test_captured_step_draws_fresh_sign_flips_each_replay(cuda):
         seg.set_agg_backend("xla")
     assert len(set(losses)) == 3, losses
     assert model.flip_rng.generator.device.type == "cuda"
+
+
+def _alchemy_gine_batch(cuda, which):
+    """An untiled all-n eigenvector batch, as train_alchemy (40 synthetic
+    Alchemy graphs) and train_zinc_gine (40 synthetic ZINC graphs) pack
+    them."""
+    from signnet_basisnet_tpu_torch.data import (add_full_evd,
+                                                 synthetic_alchemy)
+    gs = (synthetic_alchemy(40, 0, 0, seed=2) if which == "alchemy"
+          else synthetic_zinc(40, 0, 0, seed=2))["train"]
+    add_full_evd(gs, normalization=None)
+    nb, eb, gc = choose_budgets(gs, 40)
+    return from_arrays(pack_batches(gs, nb, eb, gc)[0]).to(cuda)
+
+
+ALCHEMY_GINE_NETS = {
+    "alchemy": dict(n_hid=108, n_out=12, nl_signnet=8, nl_gnn=16, nl_rho=8,
+                    node_vocab=10, edge_vocab=10, node_code_dims=6),
+    "gine_zinc": dict(n_hid=110, n_out=1, nl_signnet=8, nl_gnn=6, nl_rho=1,
+                      ignore_eigval=True, node_vocab=28, edge_vocab=4),
+}
+
+
+@pytest.mark.parametrize("phi", ["MaskedGINConv", "MaskedGINEConv"])
+@pytest.mark.parametrize("which", ["alchemy", "gine_zinc"])
+def test_alchemy_and_gine_steps_launch_no_kernel(cuda, which, phi):
+    """The two trainers' nets at published widths on the card: a finite
+    train and eval step, and no K1-K5 launch (untiled batches: the phi's
+    aggregation is the flat gather + index_add_)."""
+    from signnet_basisnet_tpu_torch.models import SignNetGNN
+    from signnet_basisnet_tpu_torch.training import make_module_predict
+    gb = _alchemy_gine_batch(cuda, which)
+    model = SignNetGNN(phi_gnn_type=phi, **ALCHEMY_GINE_NETS[which]).to(cuda)
+    train, evaluate = build_steps(model, make_module_predict(model),
+                                  adam(model.parameters()))
+    counters = (spmm_mod.spmm_tiled, attn_mod.edge_softmax_attention_tiled,
+                gate_mod.gatedgcn_gate_tiled, ops.spmm_flat)
+    before = [(getattr(f, "launches", 0), getattr(f, "launches_fwd", 0),
+               getattr(f, "launches_bwd", 0)) for f in counters]
+    loss = float(train(gb, 1e-3)["loss"])
+    out = evaluate(gb)
+    torch.cuda.synchronize()
+    after = [(getattr(f, "launches", 0), getattr(f, "launches_fwd", 0),
+              getattr(f, "launches_bwd", 0)) for f in counters]
+    assert before == after
+    assert torch.isfinite(torch.tensor(loss)) and torch.isfinite(
+        out["mae_sum"]).item()
+
+
+def test_attention_dropout_draws_a_fresh_mask_each_step(cuda):
+    """The set transformer's attention dropout (0.1) on the card draws
+    from the net's `dropout_rng`, made there: at LR 0 only its masks change
+    the train loss from step to step; a captured step registers it, so
+    each replay draws its own."""
+    from signnet_basisnet_tpu_torch.models import SignNetGNN
+    from signnet_basisnet_tpu_torch.training import (capture_train_step,
+                                                     make_module_predict)
+    gb = _alchemy_gine_batch(cuda, "alchemy")
+    net = dict(ALCHEMY_GINE_NETS["alchemy"], n_hid=32, nl_signnet=2,
+               nl_gnn=2, nl_rho=2)
+    model = SignNetGNN(**net).to(cuda)
+    train, _ = build_steps(model, make_module_predict(model),
+                           adam(model.parameters()))
+    eager = [float(train(gb, 0.0)["loss"]) for _ in range(3)]
+    assert len(set(eager)) == 3, eager
+    assert model.dropout_rng.generator.device.type == "cuda"
+    m2 = SignNetGNN(**net).to(cuda)
+    captured = capture_train_step(m2, make_module_predict(m2),
+                                  adam(m2.parameters(), capturable=True), gb)
+    replays = [float(captured(gb, 0.0)["loss"]) for _ in range(3)]
+    assert len(set(replays)) == 3, replays

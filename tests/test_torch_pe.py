@@ -5,8 +5,9 @@ the masked all-eigenvector SignNet (`MaskedGINDeepSigns`) and the
 GatedGCN LapPE train and eval steps under abs_val, canonical and
 sign_flip, under bridged parameters.
 
-`step_parity` here is shared with tests/test_torch_masked.py and
-tests/test_torch_lspe.py.  The step-1 gradients are read from the first
+`step_parity` here is shared with tests/test_torch_masked.py,
+tests/test_torch_lspe.py and the other slices' step tests (the Alchemy and
+GINE-ZINC nets through its `modules`).  The step-1 gradients are read from the first
 Adam moment on the JAX side (0.1 g after one step), which saves one
 compile of the model.
 
@@ -60,6 +61,8 @@ from signnet_basisnet_tpu.training import adam as jadam
 from signnet_basisnet_tpu.training import build_steps as jbuild_steps
 from signnet_basisnet_tpu.training import create_state
 from signnet_basisnet_tpu.training import make_lapeig_loss_fn as jlapeig
+from signnet_basisnet_tpu.training import make_module_predict as \
+    jmodule_predict
 from signnet_basisnet_tpu.training import make_zinc_predict as jpredict
 
 from signnet_basisnet_tpu_torch import models as TM
@@ -79,6 +82,7 @@ from signnet_basisnet_tpu_torch.nn.init import init_parameters
 from signnet_basisnet_tpu_torch.training import (Checkpointer, adam,
                                                  build_steps, load_config,
                                                  make_lapeig_loss_fn,
+                                                 make_module_predict,
                                                  make_zinc_predict)
 
 LR = 1e-3
@@ -419,25 +423,38 @@ def _randomize_buffers(tm, seed=1):
 
 
 def step_parity(model_name, net, arrays, lap_method, *, lapeig=None,
-                monkeypatch=None, steps=3, backend=None):
+                monkeypatch=None, steps=3, backend=None, modules=None,
+                exact_grads=False):
     """The port's train and eval steps against the JAX ones from bridged
     init weights: 1 and 3 Adam steps (losses, step-1 gradients, parameters,
     BN statistics) and one eval step with random BN running statistics
     (loss and MAE sums).  `lapeig` = (alpha, lambda, k) selects the LSPE
     loss (then the nets return p).  Under sign_flip the port's draw is
-    monkeypatched to return the JAX draws of the same steps.  Returns the
+    monkeypatched to return the JAX draws of the same steps.  With
+    `modules` = (the flax module, a function making a fresh port module)
+    the nets are those, called on the batch alone (`make_module_predict`)
+    instead of the ZINC net `model_name` with its PE.  With `exact_grads`
+    the step-1 gradients are held to 1e-4 relative plus the larger of
+    1e-6 of the largest gradient (at least 1e-6) and twice JAX's own
+    distance, element by element, from the port's f64 step-1 gradient
+    (which must match JAX's within 1e-4 relative plus 1e-3 of the
+    largest), for nets with biases straight before a BatchNorm, whose
+    exact gradient is 0; the parameters whose f64 gradient is below that
+    floor then count as noise too (held to 2 * lr a step).  Returns the
     two eval results."""
     jgb, tgb = jfrom_arrays(arrays), from_arrays(arrays)
-    jm = JM.gnn_model(model_name, **net)
+    jm = JM.gnn_model(model_name, **net) if modules is None else modules[0]
     tx = jadam()
-    state = create_state(jm, jgb, tx, model_kwargs={"pos_enc": jgb.eigvecs})
+    state = create_state(jm, jgb, tx, model_kwargs=None if modules else
+                         {"pos_enc": jgb.eigvecs})
     variables = jax.tree.map(np.asarray, {"params": state.params,
                                           "batch_stats": state.batch_stats})
     return_p = lapeig is not None
     jkw = {"loss_fn": jlapeig(*lapeig)} if return_p else {}
     tkw = {"loss_fn": make_lapeig_loss_fn(*lapeig)} if return_p else {}
     jtrain, jeval = jbuild_steps(
-        jpredict(jm, lap_method=lap_method, return_p=return_p), tx,
+        jpredict(jm, lap_method=lap_method, return_p=return_p)
+        if modules is None else jmodule_predict(jm), tx,
         donate=False, **jkw)
     keys = [jax.random.PRNGKey(100 + i) for i in range(steps)]
     ekey = jax.random.PRNGKey(7)
@@ -457,9 +474,15 @@ def step_parity(model_name, net, arrays, lap_method, *, lapeig=None,
         monkeypatch.setattr(tpe, "sign_flip", jax_draws)
 
     def port_model():
-        tm = TM.gnn_model(model_name, **net)
+        tm = (TM.gnn_model(model_name, **net) if modules is None
+              else modules[1]())
         load_flax_variables(tm, variables)
         return tm
+
+    def port_predict(tm):
+        if modules is not None:
+            return make_module_predict(tm)
+        return make_zinc_predict(tm, lap_method, return_p=return_p)
 
     ctx = (pltpu.force_tpu_interpret_mode() if backend == "pallas_tile"
            else jax.default_device(jax.devices("cpu")[0]))
@@ -475,9 +498,8 @@ def step_parity(model_name, net, arrays, lap_method, *, lapeig=None,
                 for path in _flat(variables["batch_stats"])})
             jres = jax.tree.map(float, jeval(state.replace(batch_stats=bs),
                                              jgb, *([ekey] if flip else [])))
-            _, teval = build_steps(te, make_zinc_predict(
-                te, lap_method, return_p=return_p), adam(te.parameters()),
-                **tkw)
+            _, teval = build_steps(te, port_predict(te),
+                                   adam(te.parameters()), **tkw)
             tres = {k: float(v) for k, v in teval(
                 tgb, te.eval_flip_rng if flip else None).items()}
             if flip:
@@ -489,9 +511,8 @@ def step_parity(model_name, net, arrays, lap_method, *, lapeig=None,
                 jstates.append(st)
                 jlosses.append(float(m["loss"]))
             tm = port_model()
-            tstep, _ = build_steps(tm, make_zinc_predict(
-                tm, lap_method, return_p=return_p), adam(tm.parameters()),
-                **tkw)
+            tstep, _ = build_steps(tm, port_predict(tm),
+                                   adam(tm.parameters()), **tkw)
             tlosses, tstates = [], []
             for i in range(steps):
                 tlosses.append(float(tstep(tgb, LR)["loss"]))
@@ -502,6 +523,13 @@ def step_parity(model_name, net, arrays, lap_method, *, lapeig=None,
                 tstates.append({n: t.detach().clone() for n, t in
                                 list(tm.named_parameters())
                                 + list(tm.named_buffers())})
+            if exact_grads:
+                t64 = port_model().double()
+                build_steps(t64, port_predict(t64), adam(t64.parameters()),
+                            **tkw)[0](tgb.cast_floats(torch.float64), LR)
+                exact = {n: (np.zeros(p.shape) if p.grad is None
+                             else p.grad.numpy())
+                         for n, p in t64.named_parameters()}
     finally:
         if backend:
             _backend("xla")
@@ -514,10 +542,21 @@ def step_parity(model_name, net, arrays, lap_method, *, lapeig=None,
     jgrads = {p: m / 0.1 for p, m in
               _flat(jstates[0].opt_state[0].mu).items()}
     assert len(jgrads) == len(tgrads)
+    top = max(np.abs(g).max() for g in jgrads.values())
     for path, g in jgrads.items():
         name = torch_name(path)
-        np.testing.assert_allclose(tgrads[name].numpy(), _port_view(path, g),
-                                   err_msg=name, **GTOL)
+        want = _port_view(path, g)
+        if not exact_grads:
+            np.testing.assert_allclose(tgrads[name].numpy(), want,
+                                       err_msg=name, **GTOL)
+            continue
+        ref = exact[name]
+        np.testing.assert_allclose(ref, want, rtol=1e-4, atol=1e-3 * top,
+                                   err_msg=name)
+        bar = GTOL["rtol"] * np.abs(want) + np.maximum(
+            max(1e-6 * top, 1e-6), 2 * np.abs(want - ref))
+        err = np.abs(tgrads[name].numpy() - want)
+        assert (err <= bar).all(), (name, float((err - bar).max()))
     for step in sorted({1, steps}):
         jst, tst = jstates[step - 1], tstates[step - 1]
         for path, a in _flat(jst.params).items():
@@ -525,6 +564,8 @@ def step_parity(model_name, net, arrays, lap_method, *, lapeig=None,
             a = _port_view(path, a)
             d = np.abs(tst[name].numpy() - a)
             noise = np.abs(_port_view(path, jgrads[path])) < 1e-6
+            if exact_grads:     # or an exact gradient below the floor
+                noise |= np.abs(exact[name]) < max(1e-6 * top, 1e-6)
             assert d[~noise].max(initial=0) <= 2e-5, (name, step)
             assert d[noise].max(initial=0) <= 2 * LR * step * 1.01, (name,
                                                                      step)
