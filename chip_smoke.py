@@ -141,6 +141,34 @@ each so a stall shows where it happened:
    train_zinc_gine.run for 2 epochs on 256-384 synthetic graphs at
    published widths: train and eval step times, peak memory, finite MAE,
    Alchemy's per-target MAE and logMAE; zero K1-K5 launches throughout.
+14. the LearningFilters workload (`_phase_14`; no kernel: `propagate` is a
+   gather and index_add_, the IGN, DeepSets and attention dense ops, in
+   both packages): 14a one `train_filters.train_step` card vs CPU on a
+   12x12 grid for each of the nine base nets, the SignNet PE with the DS,
+   MLP and Transformer phi and the BasisNet PE with IGN and IGNShared,
+   under deterministic algorithms: the card's f64 step within 1e-9 of the
+   CPU's, the f32 gradients to phase 4a's bar or, where a ReLU flip near
+   its kink defeats it, to 13a's median and gross bounds; 14b the three
+   published rows of RESULTS.md's band-filter table (SignNet-DS,
+   Transformer base, BasisNet) on the real 32x32 grid with all 1024
+   eigenvectors, `--matmul_precision highest`, through `train_filters.run`
+   (2 images x 200 epochs: PARAMETERS asserted 48,732 / 48,331 / 48,221),
+   then image 0's model apart: the epoch's time on the host clock, the
+   loss at epochs 1, 100 and 200 (finite, falling), a profiled epoch
+   (device time, busy share, top device ops), peak memory and, for
+   BasisNet, the CUDA-event time of the first IGN layer's contractions
+   over the projector stacks, which every epoch recomputes; 14c
+   `--vmap_images 2` against the serial run (lr 1e-3, 2 images) for the
+   BasisNet row and the SignNet-MLP row (k = 8): in f64 the vmapped
+   trainer's first step within 1e-9 of the serial ones (losses relative,
+   gradients of the model's largest; the 4-step loss gap printed: at n =
+   1024 f64 noise on zero-gradient weights is enough for Adam too);
+   in f32 through `train_filters.run` the initial losses (1 epoch) within
+   1e-4, and after 4 epochs the gap printed beside the serial run's
+   distance from the CPU's serial run, with whether the rtol 2e-3 of
+   tests/test_filters_vmap.py holds (in f32 Adam moves the weights whose
+   exact gradient is 0 by +-lr on their rounding noise, which each
+   summation order draws anew); zero K1-K5 launches throughout.
 
 Phase 1d holds K5 against its plain version over NaN-filled output memory
 (f32 and bf16 at bench_ops' shape N = 3072, D = 128; D = 95; N = 300;
@@ -920,6 +948,340 @@ def _phase_13(record, dev, reset_counts, launches):
               f"val {res['test_at_best_val']:.4f}", flush=True)
         if not np.isfinite([res["best_val"], res["test_at_best_val"]]).all():
             raise AssertionError(f"gine_zinc: non-finite metrics {res}")
+
+
+# the LearningFilters rows of RESULTS.md's band-filter table, with the
+# PARAMETERS line of the JAX logs (results/r2/band50_*.log)
+FILTER_ROWS = {
+    "signnet_ds": (["--net", "DS", "--hidden_channels", "32",
+                    "--num_layers", "3", "--use_eig", "--lap_method",
+                    "sign_inv", "--sign_inv_net", "DS"], 48732),
+    "transformer": (["--net", "Transformer", "--hidden_channels", "16",
+                     "--use_eig", "--lap_method", "sign_inv",
+                     "--sign_inv_net", "DS"], 48331),
+    "basisnet": (["--net", "DS", "--hidden_channels", "16", "--use_eig",
+                  "--lap_method", "basis_inv", "--ign_hidden", "16"], 48221),
+}
+
+
+def _grid_mat(path, side, images=3, seed=0):
+    """A side x side grid .mat in the 2Dgrid.mat layout (A, F, mask)."""
+    import numpy as np
+    import scipy.io as sio
+    n = side * side
+    A = np.zeros((n, n), np.uint8)
+    for i in range(side):
+        for j in range(side):
+            u = i * side + j
+            if j + 1 < side:
+                A[u, u + 1] = A[u + 1, u] = 1
+            if i + 1 < side:
+                A[u, u + side] = A[u + side, u] = 1
+    mask = np.ones((n, 1), np.uint8)
+    mask[:3] = 0
+    sio.savemat(path, dict(A=A, F=np.random.default_rng(seed).random(
+        (n, images)), mask=mask))
+    return path
+
+
+def _filter_step_card_vs_cpu(tf, args):
+    """One `train_filters.train_step` of image 0 from the same seed on the
+    card and on the CPU, each in f32 and f64: the losses and every
+    gradient."""
+    import torch
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        for dt in (torch.float32, torch.float64):
+            p = tf.prepare(args, lambda m: None, torch.device(dev), dt)
+            model = p.make_model(args.seed * 100003)
+            loss, _ = tf.train_step(model, tf.adam(model.parameters()), p.gb,
+                                    p.x[:, :1], p.y[:, :1], p.mask, p.kwargs)
+            runs[f"{dev}_{str(dt)[-2:]}"] = (float(loss), {
+                n: t.grad.detach().cpu().double()
+                for n, t in model.named_parameters() if t.grad is not None})
+    return runs
+
+
+def _stacked_vs_serial_f64(tf, args, steps=4):
+    """The vmapped trainer (`stacked_trainer`) against the serial
+    `train_step`, both in f64 on the card from the same seeds, over the
+    first images of `args`: the first step's largest relative loss gap,
+    its gradients' largest gap relative to the model's largest gradient,
+    and the largest relative loss gap over `steps` steps."""
+    import numpy as np
+    import torch
+    p = tf.prepare(args, lambda m: None, torch.device("cuda"), torch.float64)
+    seeds = [args.seed * 100003 + i for i in p.img_ids]
+    xs = torch.stack([p.x[:, i:i + 1] for i in p.img_ids])
+    ys = torch.stack([p.y[:, i:i + 1] for i in p.img_ids])
+    serial, grads = [], []
+    for i, seed in enumerate(seeds):
+        model = p.make_model(seed)
+        opt = tf.adam(model.parameters())
+        tf.set_lr(opt, args.lr)
+        losses = []
+        for s in range(steps):
+            losses.append(float(tf.train_step(model, opt, p.gb, xs[i], ys[i],
+                                              p.mask, p.kwargs)[0]))
+            if s == 0:
+                grads.append({n: t.grad.clone() for n, t in
+                              model.named_parameters()})
+        serial.append(losses)
+    step, params = tf.stacked_trainer([p.make_model(s) for s in seeds], p,
+                                      args.lr)
+    stacked = []
+    for s in range(steps):
+        stacked.append(step(xs, ys)[0].cpu().numpy())
+        if s == 0:
+            top = max(float(g.abs().max()) for g in grads[0].values())
+            grad_gap = max(float((params[n].grad[i] - g).abs().max()) / top
+                           for i, gi in enumerate(grads)
+                           for n, g in gi.items())
+    stacked, serial = np.array(stacked).T, np.array(serial)
+    gaps = np.abs(stacked - serial) / np.abs(serial)
+    return float(gaps[:, 0].max()), grad_gap, float(gaps.max())
+
+
+def _hold_filter_step(tag, runs):
+    """The card's f64 step within 1e-9 of the CPU's (loss relative; each
+    gradient relative to the larger of its largest entry and 1e-4 of the
+    model's); the card's f32 gradients to phase 4a's bar (each tensor's
+    error from the CPU's f64 one within 10x the CPU's f32 error + 1e-6 of
+    its largest), or, where a flip near a ReLU's kink defeats that, to 13a's
+    (the median relative error within 10x the CPU's, each tensor within 10x
+    the CPU's worst relative error), tensors with an exact gradient of 0
+    (below 1e-6 of the largest) left out of the f32 checks."""
+    import numpy as np
+    ref = runs["cpu_64"][1]
+    top = max(float(g.abs().max()) for g in ref.values())
+    gap = max((float((runs["cuda_64"][1][n] - g).abs().max())
+               / max(float(g.abs().max()), 1e-4 * top), n)
+              for n, g in ref.items())
+    loss_gap = abs(runs["cuda_64"][0] - runs["cpu_64"][0]) / abs(
+        runs["cpu_64"][0])
+    live = [n for n, g in ref.items() if float(g.abs().max()) >= 1e-6 * top]
+    err = {k: {n: float((runs[k][1][n] - ref[n]).abs().max()) for n in live}
+           for k in ("cuda_32", "cpu_32")}
+    scale = {n: float(ref[n].abs().max()) for n in live}
+    ratio = max((err["cuda_32"][n] / (10 * err["cpu_32"][n]
+                                      + 1e-6 * scale[n]), n) for n in live)
+    rel = {k: {n: v / scale[n] for n, v in e.items()} for k, e in err.items()}
+    med = {k: float(np.median(list(v.values()))) for k, v in rel.items()}
+    cpu_worst = max(rel["cpu_32"].values())
+    gross = max((v / (10 * cpu_worst + 1e-12), n)
+                for n, v in rel["cuda_32"].items())
+    held_4a = ratio[0] <= 1
+    print(f"  {tag}: loss card/CPU f32 {runs['cuda_32'][0]:.7f} / "
+          f"{runs['cpu_32'][0]:.7f}; f64 loss {loss_gap:.2e} apart, grads "
+          f"at most {gap[0]:.2e} of the tensor's largest ({gap[1]}); f32 "
+          f"grads: phase 4a's bar {'holds' if held_4a else 'does not hold'}"
+          f" ({ratio[0]:.3f} at {ratio[1]}); median relative error card "
+          f"{med['cuda_32']:.2e} CPU {med['cpu_32']:.2e}, gross "
+          f"{gross[0]:.3f} ({len(ref) - len(live)} zero-gradient tensors "
+          f"left out)", flush=True)
+    if not (loss_gap < 1e-9 and gap[0] < 1e-9):
+        raise AssertionError(f"{tag}: the card's f64 step departs from the "
+                             f"CPU's ({loss_gap}, {gap})")
+    if not held_4a and (med["cuda_32"] > 10 * med["cpu_32"]
+                        or gross[0] > 1):
+        raise AssertionError(f"{tag}: the card's f32 gradients {ratio}, "
+                             f"{med}, {gross}")
+    return dict(f64_loss_gap=loss_gap, f64_grad_gap=gap, bar_4a=ratio,
+                held_4a=held_4a, median_rel=med, gross=gross,
+                loss_f32={k: runs[k][0] for k in ("cuda_32", "cpu_32")})
+
+
+def _phase_14(record, reset_counts, launches):
+    """Phase 14, the LearningFilters workload (no kernel: `propagate` is a
+    gather and index_add_, the IGN and attention dense ops):
+    `reset_counts()` sets every kernel's launch counter to 0,
+    `launches()` reads them."""
+    import numpy as np
+    import torch
+    from signnet_basisnet_tpu_torch import train_filters as tf
+    from signnet_basisnet_tpu_torch.graph import segment as seg
+    seg.set_agg_backend("xla")
+    seg.set_sum_backend("xla")
+    fdir = os.path.join(OUT_DIR, "filters")
+    os.makedirs(fdir, exist_ok=True)
+    parse = tf.build_parser().parse_args
+
+    def no_launches(tag):
+        got = launches()
+        if any(got.values()):
+            raise AssertionError(f"{tag}: kernels launched {got}")
+
+    with Phase("14a filter steps, card vs CPU (12x12 grid)"):
+        # each grid in a directory of its own: the eigenpair and label
+        # caches are kept beside the .mat
+        small_dir = os.path.join(fdir, "grid12")
+        os.makedirs(small_dir, exist_ok=True)
+        small = _grid_mat(os.path.join(small_dir, "grid.mat"), 12)
+        common = ["--mat_path", small, "--label_dir", small_dir,
+                  "--results_dir", ""]
+        variants = {name: ["--net", name] for name in
+                    tf.FILTER_MODEL_REGISTRY}
+        for phi in ("DS", "MLP", "Transformer"):
+            variants[f"sign_inv_{phi}"] = [
+                "--net", "DS", "--use_eig", "--lap_method", "sign_inv",
+                "--sign_inv_net", phi]
+        for enc in ("IGN", "IGNShared"):
+            variants[f"basis_inv_{enc}"] = [
+                "--net", "DS", "--use_eig", "--lap_method", "basis_inv",
+                "--basis_inv_net", enc, "--ign_hidden", "16"]
+        out = {}
+        reset_counts()
+        # deterministic algorithms: index_add_'s atomics would sum in any
+        # order on the card
+        with _deterministic():
+            for tag, argv in variants.items():
+                out[tag] = _hold_filter_step(tag, _filter_step_card_vs_cpu(
+                    tf, parse(argv + common)))
+        held = sum(v["held_4a"] for v in out.values())
+        print(f"  phase 4a's bar held by {held} of {len(out)} steps; "
+              f"launches {launches()} (expected none)", flush=True)
+        no_launches("14a")
+        record["filters_card_vs_cpu"] = out
+
+    with Phase("14b the three published rows (real grid, 2 images x 200 "
+               "epochs, matmul_precision highest)"):
+        real_dir = os.path.join(fdir, "2dgrid")
+        os.makedirs(real_dir, exist_ok=True)
+        real = os.path.join(real_dir, "2Dgrid.mat")
+        shutil.copy(os.path.join("data", "2dgrid", "2Dgrid.mat"), real)
+        for tag, (argv, want_params) in FILTER_ROWS.items():
+            args = parse(argv + [
+                "--mat_path", real, "--label_dir", real_dir, "--img_num",
+                "2", "--epochs", "200", "--scan_epochs", "100",
+                "--matmul_precision", "highest", "--results_dir",
+                os.path.join(fdir, "results")])
+            lines = []
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            res = tf.run(args, log=lambda m: (lines.append(m), print(
+                "  " + m, flush=True)))
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            no_launches(tag)
+            params = int(next(l for l in lines
+                              if l.startswith("PARAMETERS")).split()[1])
+            if params != want_params or not np.isfinite(res).all():
+                raise AssertionError(f"{tag}: PARAMETERS {params}, "
+                                     f"results {res}")
+            # the epochs apart: image 0's model, one loss per epoch read at
+            # the end; the host clock over epochs 101-200
+            with tf.matmul_precision("highest"):
+                p = tf.prepare(args, lambda m: None, torch.device("cuda"))
+                model = p.make_model(args.seed * 100003)
+                opt = tf.adam(model.parameters())
+                tf.set_lr(opt, args.lr)
+                step = lambda b, lr: tf.train_step(
+                    model, opt, p.gb, p.x[:, :1], p.y[:, :1], p.mask,
+                    p.kwargs)
+                losses = []
+                for e in range(200):
+                    if e == 100:
+                        torch.cuda.synchronize()
+                        t1 = time.time()
+                    losses.append(step(None, None)[0])
+                torch.cuda.synchronize()
+                epoch_ms = (time.time() - t1) / 100 * 1e3
+                prof = _profile_steps(step, None, [], steps=5)
+                contraction_ms = None
+                if p.kwargs["projs"] is not None:
+                    # the first IGN layer's 2->1 contractions over the
+                    # constant projector stacks, which every epoch
+                    # recomputes: CUDA-event time, all multiplicities
+                    from signnet_basisnet_tpu_torch.nn.ign import (
+                        contractions_2_to_1)
+                    contraction_ms = _cuda_time_ms(lambda: [
+                        contractions_2_to_1(P)
+                        for P in p.kwargs["projs"].values()], iters=20)
+            losses = torch.stack(losses).cpu().numpy()
+            l1, l100, l200 = (float(losses[i]) for i in (0, 99, 199))
+            if contraction_ms is not None:
+                share = (contraction_ms * 1e3 / prof["device_us_per_step"]
+                         if isinstance(prof, dict) else "not measured")
+                print(f"  {tag}: the first IGN layer's contractions "
+                      f"{contraction_ms:.3f} ms an epoch (CUDA events), "
+                      f"{share} of the epoch's device time", flush=True)
+            print(f"  {tag}: PARAMETERS {params}; run() {run_s:.1f} s for 2 "
+                  f"images x 200 epochs (set-up included), results "
+                  f"{res.tolist()}; epoch {epoch_ms:.2f} ms on the host "
+                  f"clock (epochs 101-200); loss at epochs 1 / 100 / 200 "
+                  f"{l1:.6g} / {l100:.6g} / {l200:.6g}; peak memory "
+                  f"{peak:.0f} MiB; profiler {prof}", flush=True)
+            if not (np.isfinite(losses).all() and l200 < l100 < l1):
+                raise AssertionError(f"{tag}: losses {l1}, {l100}, {l200}")
+            no_launches(tag)
+            record[f"filters_{tag}"] = dict(
+                params=params, run_s=run_s, results=res.tolist(),
+                epoch_ms=epoch_ms, loss_1_100_200=(l1, l100, l200),
+                contraction_ms=contraction_ms,
+                peak_mib=peak, profile=prof)
+            del p, model, opt, step
+
+    with Phase("14c --vmap_images 2 against the serial run (lr 1e-3)"):
+        common = ["--mat_path", real, "--label_dir", real_dir, "--img_num",
+                  "2", "--lr", "1e-3", "--results_dir", ""]
+        mlp = ["--net", "MLP", "--use_eig", "--lap_method", "sign_inv",
+               "--sign_inv_net", "MLP", "--k", "8"]
+        out = {}
+        reset_counts()
+        for tag, argv in (("basisnet", FILTER_ROWS["basisnet"][0]),
+                          ("signnet_mlp_k8", mlp)):
+            # the stacked trainer's math: the first f64 step's loss and
+            # gradients against the serial ones (later steps part where
+            # Adam moves zero-gradient weights on rounding noise)
+            f64_first, f64_grads, f64_gap = _stacked_vs_serial_f64(
+                tf, parse(argv + common))
+            got = {}
+            for epochs, vm, dev in (("1", "1", "cuda"), ("1", "2", "cuda"),
+                                    ("4", "1", "cuda"), ("4", "2", "cuda"),
+                                    ("4", "1", "cpu")):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                got[epochs, vm, dev] = tf.run(parse(argv + common + [
+                    "--epochs", epochs, "--scan_epochs", epochs,
+                    "--vmap_images", vm, "--device", dev]),
+                    log=lambda m: None)[:, 0]
+                torch.cuda.synchronize()
+                got[epochs, vm, dev, "s"] = time.time() - t0
+            rel = lambda a, b: float(np.max(np.abs(a - b) / np.abs(b)))
+            # 1 epoch: the initial loss, before Adam has moved a weight
+            first = rel(got["1", "2", "cuda"], got["1", "1", "cuda"])
+            gap = rel(got["4", "2", "cuda"], got["4", "1", "cuda"])
+            spread = rel(got["4", "1", "cuda"], got["4", "1", "cpu"])
+            out[tag] = dict(f64_first_step=f64_first,
+                            f64_first_step_grads=f64_grads,
+                            f64_gap=f64_gap, first_epoch_gap=first, gap=gap,
+                            cpu_vs_card_serial=spread, held_2e3=gap <= 2e-3,
+                            runs={"_".join(k): (
+                                v if isinstance(v, float) else v.tolist())
+                                for k, v in got.items()})
+            print(f"  {tag}: f64, the stacked trainer against the serial "
+                  f"steps: first step's losses {f64_first:.2e} and gradients "
+                  f"{f64_grads:.2e} (of the largest) apart, losses over 4 "
+                  f"steps {f64_gap:.2e}; f32 run(): "
+                  f"initial loss vmapped vs serial {first:.2e} apart; after "
+                  f"4 epochs serial {got['4', '1', 'cuda'].tolist()} "
+                  f"({got['4', '1', 'cuda', 's']:.1f} s), vmapped "
+                  f"{got['4', '2', 'cuda'].tolist()} "
+                  f"({got['4', '2', 'cuda', 's']:.1f} s): {gap:.2e} apart "
+                  f"(rtol 2e-3 {'holds' if gap <= 2e-3 else 'does not hold'}"
+                  f"); the serial run on the CPU "
+                  f"{got['4', '1', 'cpu'].tolist()}, {spread:.2e} from the "
+                  f"card's", flush=True)
+            finite = all(np.isfinite(v).all() for v in got.values()
+                         if not isinstance(v, float))
+            if max(f64_first, f64_grads) > 1e-9 or first > 1e-4 or not finite:
+                raise AssertionError(f"14c {tag}: vmapped and serial part "
+                                     f"{out[tag]}")
+        no_launches("14c")
+        record["filters_vmap"] = out
 
 
 def main():
@@ -2682,9 +3044,13 @@ def main():
                       flush=True)
 
     # --------------------------------------------------------------- 13
-    _phase_13(record, dev, reset_counts, lambda: {
+    counts = lambda: {
         "K1": spmm_tiled.launches, "K2": tiled.launches_fwd,
-        "K3": tiled.launches_bwd, "K4": gate.launches, "K5": flat.launches})
+        "K3": tiled.launches_bwd, "K4": gate.launches, "K5": flat.launches}
+    _phase_13(record, dev, reset_counts, counts)
+
+    # --------------------------------------------------------------- 14
+    _phase_14(record, reset_counts, counts)
 
     kernels = [kern, kern2, kern3, kern4, kern5]
     record["kernels"] = kernels

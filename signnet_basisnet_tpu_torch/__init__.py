@@ -8,11 +8,12 @@ ported path becomes a hand-written CUDA kernel for Hopper (sm_90a) under
 keeps a plain-PyTorch version beside it, which is the only path for CPU
 tensors.
 
-Ported so far: the ZINC GIN, Transformer and GatedGCN + SignNet
-(GINDeepSigns) trainers with every Pallas kernel of the JAX package as a
-CUDA kernel (ops/), and the benchmark entry points bench_ops, bench (with
-the train step captured in a CUDA graph) and bench_roofline.  See
-ROADMAP.md for the rest.
+Ported so far: the ZINC trainer with its five nets and PEs, with every
+Pallas kernel of the JAX package as a CUDA kernel (ops/); the Alchemy,
+GINE-ZINC and LearningFilters (BasisNet, the spectral-filter nets)
+trainers; and the benchmark entry points bench_ops, bench (with the train
+step captured in a CUDA graph) and bench_roofline.  See ROADMAP.md for
+the rest.
 """
 
 __version__ = "0.1.0"

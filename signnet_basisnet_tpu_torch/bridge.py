@@ -11,7 +11,14 @@ them into the port's parameters and buffers:
 - GAT's attention vectors `attn_src`/`attn_dst` (1, H, F) as they are, and
   the bare `bias` of GAT and GCN (beside their `weight/{kernel,bias}`
   Linear) -> the layer's `bias`;
-- the GIN-family convs' learnt scalar `eps` as it is.
+- the GIN-family convs' learnt scalar `eps` as it is;
+- the leaves with no Linear rule as they are: IGN's `coeffs`, `diag_bias`
+  and [1, S, 1(, 1)] `bias`, GPRNet's `temp`, BernNet's `coe`, the bare
+  `bias_i` of GcnNet and ChebNet;
+- flax `MultiHeadDotProductAttention`'s `DenseGeneral` kernels, `query`,
+  `key` and `value` [in, H, hd] -> [H*hd, in] and `out` [H, hd, out] ->
+  [out, H*hd], their [H, hd] biases flattened; `nn.LayerNorm`'s `scale`
+  -> `weight`.
 
 Module paths map one to one (flax's OptimizedLSTMCell's eight Linears
 `ii`, `if`, `ig`, `io`, `hi`, `hf`, `hg`, `ho` are the port's LSTMCell's),
@@ -33,6 +40,9 @@ import torch
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias", "mean": "running_mean", "var": "running_var",
          "attn_src": "attn_src", "attn_dst": "attn_dst", "eps": "eps"}
+# leaves that keep their flax name in the port
+_BARE = re.compile(r"coeffs|diag_bias|temp|coe|bias_\d+")
+_HEADS_IN = ("query", "key", "value")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -58,7 +68,22 @@ def torch_name(path: tuple) -> str:
             parts[i] = f"conv_{m.group(1)}.mlp"
         if p == "update_net":
             parts[i] = "mlp"
-    return ".".join(parts + [_LEAF[path[-1]]])
+    leaf = path[-1]
+    if leaf not in _LEAF and not _BARE.fullmatch(leaf):
+        raise KeyError(f"flax leaf {'/'.join(path)}: no rule in the bridge")
+    return ".".join(parts + [_LEAF.get(leaf, leaf)])
+
+
+def port_value(path: tuple, arr: np.ndarray) -> np.ndarray:
+    """The flax leaf `arr` at `path` in the port's layout."""
+    if path[-1] == "kernel":
+        if arr.ndim == 3:   # attention DenseGeneral, heads flattened
+            arr = (arr.reshape(-1, arr.shape[-1]) if path[-2] == "out"
+                   else arr.reshape(arr.shape[0], -1))
+        return arr.T
+    if path[-1] == "bias" and arr.ndim == 2 and path[-2] in _HEADS_IN:
+        return arr.reshape(-1)
+    return arr
 
 
 def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
@@ -72,7 +97,7 @@ def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
                 raise KeyError(f"flax {coll}/{'/'.join(path)} -> {name}: no "
                                "such tensor in the port")
             t = targets[name]
-            val = arr.T if path[-1] == "kernel" else arr
+            val = port_value(path, arr)
             if tuple(val.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: flax shape {arr.shape} does not "
                                  f"fit {tuple(t.shape)}")

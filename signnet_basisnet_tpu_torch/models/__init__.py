@@ -1,4 +1,5 @@
 from .baselines import GINEBondConv, NetGINE
+from .basisnet import IGNBasisInv, IGNShared, basis_features
 from .conv import (GATConv, GCNConv, GatedGCNLSPELayer, GINConv, GINEConv,
                    GraphTransformerAttention, GraphTransformerLayer,
                    MaskedGINConv, MaskedGINEConv, PNALayer,
@@ -12,3 +13,5 @@ from .signnet import (GNN3d, GINDeepSigns, KChannelGNN, MaskedGINDeepSigns,
 from .zinc_models import (GATNet, GINNet, PNANet, TransformerNet, ZincNet,
                           gnn_model, lapeig_loss, normalize_p,
                           sign_inv_module)
+from . import spectral_filters
+from .spectral_filters import FILTER_MODEL_REGISTRY

@@ -6,7 +6,9 @@ normalising over N*K rows), `ElementsMLP` and `MaskedMLP` (lin -> BN ->
 relu, the Alchemy/GINE style) and `MLPReadout` (the halving-width readout
 head).  Submodule names follow the flax names (`lin_i`, `bn_i`, `fc_i`).
 Dropout follows each hidden layer's BN, as in the JAX MLP.  The JAX MLP's
-residual and other activations are not on the ported path.
+residual and other activations are not on the ported path.  With
+`bn_track_running_stats=False` (the LearningFilters MLPs) its BNs use batch
+statistics in eval mode too.
 
 `ElementsMLP` and `MaskedMLP` keep the JAX bias rule: a Linear has a bias
 only if it is the last one and takes no activation (with `bias`), or if
@@ -31,7 +33,8 @@ from .norm import MaskedBatchNorm
 class MLP(nn.Module):
     def __init__(self, in_features: int, hidden: int, out: int,
                  num_layers: int, use_bn: bool = False, dropout: float = 0.0,
-                 rng: Optional[DropoutRNG] = None):
+                 rng: Optional[DropoutRNG] = None,
+                 bn_track_running_stats: bool = True):
         super().__init__()
         self.num_layers = num_layers
         self.use_bn = use_bn
@@ -40,7 +43,8 @@ class MLP(nn.Module):
         for i in range(num_layers):
             self.add_module(f"lin_{i}", Linear(dims[i], dims[i + 1]))
             if use_bn and i < num_layers - 1:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(hidden))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(
+                    hidden, track_running_stats=bn_track_running_stats))
 
     def forward(self, x, mask=None):
         for i in range(self.num_layers - 1):

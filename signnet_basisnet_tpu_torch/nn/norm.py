@@ -5,7 +5,10 @@ Port of signnet_basisnet_tpu/nn/norm.py (`MaskedBatchNorm`,
 `mask` is 1 only; normalisation uses the biased variance and the running
 variance is updated with the unbiased one; momentum 0.1, eps 1e-5; masked
 rows are zero on output.  Running statistics stay float32 whatever the input
-type (the JAX package's bf16 mode keeps batch_stats f32).
+type (the JAX package's bf16 mode keeps batch_stats f32).  With
+`track_running_stats=False` (the LearningFilters MLP and DeepSets) batch
+statistics are used in eval mode too and the running buffers, still
+registered at mean 0 and var 1 as flax creates them, never change.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ EPS = 1e-5
 
 
 class MaskedBatchNorm(nn.Module):
-    def __init__(self, features: int):
+    def __init__(self, features: int, track_running_stats: bool = True):
         super().__init__()
         self.features = features
+        self.track_running_stats = track_running_stats
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -31,7 +35,7 @@ class MaskedBatchNorm(nn.Module):
         d = self.features
         x2 = x.reshape(-1, d)
         m = None if mask is None else mask.reshape(-1, 1).to(x2.dtype)
-        if self.training:
+        if self.training or not self.track_running_stats:
             if m is None:
                 # filled on the device: a host tensor copied in would be a
                 # copy from pageable memory, which a CUDA graph capture
@@ -43,12 +47,13 @@ class MaskedBatchNorm(nn.Module):
                 cnt = torch.clamp(m.sum(), min=1.0)
                 mean = (x2 * m).sum(dim=0) / cnt
                 var = (((x2 - mean) ** 2) * m).sum(dim=0) / cnt
-            with torch.no_grad():
-                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
-                self.running_mean.copy_(
-                    (1 - MOMENTUM) * self.running_mean + MOMENTUM * mean)
-                self.running_var.copy_(
-                    (1 - MOMENTUM) * self.running_var + MOMENTUM * unbiased)
+            if self.training and self.track_running_stats:
+                with torch.no_grad():
+                    unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                    self.running_mean.copy_(
+                        (1 - MOMENTUM) * self.running_mean + MOMENTUM * mean)
+                    self.running_var.copy_((1 - MOMENTUM) * self.running_var
+                                           + MOMENTUM * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         y2 = (x2 - mean) / torch.sqrt(var + EPS) * self.weight + self.bias

@@ -36,6 +36,12 @@ The Alchemy and GINE-ZINC nets' train and eval steps at published widths
 (both phi types) launch none of K1-K5, and the set transformer's attention
 dropout draws a fresh mask each eager step and each replay of a captured
 step from the net's generator.
+The LearningFilters model's train step (`train_filters.train_step`) on a
+12x12 grid matches the CPU's in f64 within 1e-9 under deterministic
+algorithms, for the BasisNet, SignNet-Transformer, BernNet and sign-flip
+GatNet rows, launching none of K1-K5; the vmapped trainer follows the
+serial steps in f64 within 1e-6, and `train_filters.run` trains there,
+serially and vmapped (the initial losses within 1e-4).
 """
 import importlib
 
@@ -930,3 +936,151 @@ def test_attention_dropout_draws_a_fresh_mask_each_step(cuda):
                                   adam(m2.parameters(), capturable=True), gb)
     replays = [float(captured(gb, 0.0)["loss"]) for _ in range(3)]
     assert len(set(replays)) == 3, replays
+
+
+# ------------------------------------------------- LearningFilters (no kernel)
+
+def _grid_mat(path, side=12, images=3, seed=0):
+    """A side x side grid .mat in the 2Dgrid.mat layout (A, F, mask)."""
+    import numpy as np
+    import scipy.io as sio
+    n = side * side
+    A = np.zeros((n, n), np.uint8)
+    for i in range(side):
+        for j in range(side):
+            u = i * side + j
+            if j + 1 < side:
+                A[u, u + 1] = A[u + 1, u] = 1
+            if i + 1 < side:
+                A[u, u + side] = A[u + side, u] = 1
+    mask = np.ones((n, 1), np.uint8)
+    mask[:3] = 0
+    sio.savemat(path, dict(A=A, F=np.random.default_rng(seed).random(
+        (n, images)), mask=mask))
+    return str(path)
+
+
+FILTER_ROWS = {
+    "basis_inv": ["--net", "DS", "--use_eig", "--lap_method", "basis_inv",
+                  "--ign_hidden", "16", "--hidden_channels", "16"],
+    "sign_inv_ds": ["--net", "Transformer", "--use_eig", "--lap_method",
+                    "sign_inv", "--hidden_channels", "16"],
+    "bernnet": ["--net", "BernNet"],
+    "gatnet_flip": ["--net", "GatNet", "--use_eig", "--lap_method",
+                    "sign_flip", "--k", "8"],
+}
+
+
+def _kernel_counts():
+    return [(getattr(f, "launches", 0), getattr(f, "launches_fwd", 0),
+             getattr(f, "launches_bwd", 0)) for f in (
+        spmm_mod.spmm_tiled, attn_mod.edge_softmax_attention_tiled,
+        gate_mod.gatedgcn_gate_tiled, ops.spmm_flat)]
+
+
+def _stacked_vs_serial_f64(tf, args, device, steps=4):
+    """`train_filters.stacked_trainer` against the serial `train_step`, in
+    f64 from the same seeds: the largest relative gap of the per-step
+    losses."""
+    import numpy as np
+    p = tf.prepare(args, lambda m: None, device, torch.float64)
+    seeds = [args.seed * 100003 + i for i in p.img_ids]
+    xs = torch.stack([p.x[:, i:i + 1] for i in p.img_ids])
+    ys = torch.stack([p.y[:, i:i + 1] for i in p.img_ids])
+    serial = []
+    for i, seed in enumerate(seeds):
+        model = p.make_model(seed)
+        opt = adam(model.parameters())
+        opt.param_groups[0]["lr"] = args.lr
+        serial.append([float(tf.train_step(model, opt, p.gb, xs[i], ys[i],
+                                           p.mask, p.kwargs)[0])
+                       for _ in range(steps)])
+    step, _ = tf.stacked_trainer([p.make_model(s) for s in seeds], p,
+                                 args.lr)
+    stacked = np.array([step(xs, ys)[0].cpu().numpy()
+                        for _ in range(steps)]).T
+    serial = np.array(serial)
+    return float(np.max(np.abs(stacked - serial) / np.abs(serial)))
+
+
+@pytest.mark.parametrize("row", list(FILTER_ROWS))
+def test_filter_step_on_the_card_matches_the_cpu(cuda, tmp_path, row):
+    """One `train_filters` train step on a 12x12 grid from the same seed,
+    on the card and on the CPU in f64 under deterministic algorithms
+    (index_add_'s atomics otherwise sum in any order): the loss, r2 and
+    every gradient within 1e-9 of the CPU's (relative to the tensor's
+    largest); in f32 the loss within 1e-4 relative.  Sign flips are drawn
+    once on the CPU and passed to both.  No K1-K5 launch."""
+    from signnet_basisnet_tpu_torch import train_filters as tf
+    args = tf.build_parser().parse_args(FILTER_ROWS[row] + [
+        "--mat_path", _grid_mat(tmp_path / "grid.mat"), "--label_dir",
+        str(tmp_path), "--results_dir", ""])
+    flips = None
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for dev in ("cuda", "cpu"):
+            for dt in (torch.float64, torch.float32):
+                p = tf.prepare(args, lambda m: None, torch.device(dev), dt)
+                model = p.make_model(0)
+                kw = dict(p.kwargs)
+                if row == "gatnet_flip":
+                    if flips is None:
+                        flips = model.draw_flips(8, torch.device("cpu"))
+                    kw["flips"] = flips.to(dev)
+                before = _kernel_counts()
+                loss, r2 = tf.train_step(
+                    model, adam(model.parameters()), p.gb, p.x[:, :1],
+                    p.y[:, :1], p.mask, kw)
+                torch.cuda.synchronize()
+                assert _kernel_counts() == before
+                runs[dev, dt] = (float(loss), float(r2), {
+                    n: t.grad.detach().cpu().double()
+                    for n, t in model.named_parameters()
+                    if t.grad is not None})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    card, cpu = runs["cuda", torch.float64], runs["cpu", torch.float64]
+    assert abs(card[0] - cpu[0]) <= 1e-9 * abs(cpu[0])
+    assert abs(card[1] - cpu[1]) <= 1e-9
+    assert card[2].keys() == cpu[2].keys()
+    top = max(float(g.abs().max()) for g in cpu[2].values())
+    for n, g in cpu[2].items():
+        assert float((card[2][n] - g).abs().max()) <= 1e-9 * max(
+            float(g.abs().max()), 1e-4 * top), n
+    f32 = runs["cuda", torch.float32][0], runs["cpu", torch.float32][0]
+    assert abs(f32[0] - f32[1]) <= 1e-4 * abs(f32[1]), f32
+
+
+def test_train_filters_runs_on_the_card_without_kernels(cuda, tmp_path):
+    """On the card (12x12 grid, lr 1e-3), for the BasisNet and the
+    SignNet-MLP (k = 8) rows: the vmapped trainer against the serial steps
+    in f64 over 4 steps of 2 images, losses within 1e-6 relative; then
+    `train_filters.run` in f32 over 3 images, serially and vmapped in
+    chunks of 2 (one partial): finite, the initial losses (1 epoch) within
+    1e-4 relative, no K1-K5 launch.  (After a few f32 epochs the two runs
+    part by more than f32 rounding: Adam moves the weights whose exact
+    gradient is 0 by +-lr on their rounding noise, which each summation
+    order draws anew.)"""
+    import numpy as np
+    from signnet_basisnet_tpu_torch import train_filters as tf
+    common = ["--mat_path", _grid_mat(tmp_path / "grid.mat"), "--label_dir",
+              str(tmp_path), "--results_dir", "", "--lr", "1e-3"]
+    mlp = ["--net", "MLP", "--use_eig", "--lap_method", "sign_inv",
+           "--sign_inv_net", "MLP", "--k", "8"]
+    before = _kernel_counts()
+    for argv in (FILTER_ROWS["basis_inv"], mlp):
+        assert _stacked_vs_serial_f64(tf, tf.build_parser().parse_args(
+            argv + common + ["--img_num", "2"]), cuda) <= 1e-6
+        out = {}
+        for epochs, vm in (("1", "1"), ("1", "2"), ("4", "2")):
+            out[epochs, vm] = tf.run(tf.build_parser().parse_args(
+                argv + common + ["--img_num", "3", "--epochs", epochs,
+                                 "--scan_epochs", epochs, "--vmap_images",
+                                 vm]), log=lambda m: None)
+            assert out[epochs, vm].shape == (3, 2)
+            assert np.isfinite(out[epochs, vm]).all()
+        first = out["1", "2"][:, 0] / out["1", "1"][:, 0]
+        assert np.abs(first - 1).max() <= 1e-4
+    torch.cuda.synchronize()
+    assert _kernel_counts() == before
