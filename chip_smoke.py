@@ -15,8 +15,8 @@ each so a stall shows where it happened:
 1. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the stated tolerance: K1 (the tile-local SpMM; f32
    and bf16, forward and transposed, at every row width a path runs it
-   with, F = 16, 74, 95, 128, 896, 1088, 1120, 1520 and 4958; autograd; a batch
-   with non-tile-local edges), K2/K3 (the fused edge-softmax attention
+   with, F = 16, 74, 95, 122, 128, 896, 1088, 1120, 1520 and 4958;
+   autograd; a batch with non-tile-local edges), K2/K3 (the fused edge-softmax attention
    forward and backward; f32 and bf16 at D = 8, 10 and 7, both layouts,
    K2's out and den at every row and K3's dE1 at every slot over NaN-filled
    memory, a batch with non-tile-local edges) and K4 (the fused GatedGCN
@@ -169,6 +169,39 @@ each so a stall shows where it happened:
    tests/test_filters_vmap.py holds (in f32 Adam moves the weights whose
    exact gradient is 0 by +-lr on their rounding noise, which each
    summation order draws anew); zero K1-K5 launches throughout.
+15. the rest of the ZINC model paths (`_phase_15`), on 128-graph synthetic
+   ZINC batches: 15a the flagship GIN with the transformer SignNet phi
+   (`model.sign_inv_net transformer`: 4 attention layers of width 95, 2
+   heads, graphs padded to 40 nodes) card vs CPU (the attention dropout
+   off on both; the card's plain f64 step within 1e-9 of the CPU's, the
+   f32 gradients to 13a's median and gross bounds, 4a's bar printed) and
+   through train_zinc.run for 4 epochs (losses finite, the last epoch's
+   mean train loss below the first's; K1 32 a train step
+   and 16 an eval step, at F = 95: the phi launches none); 15b remat
+   against the plain step from one init under deterministic algorithms,
+   for the flagship GIN (pallas_tile), the Transformer as shipped
+   (tile_dense), GatedGCN tiled with pallas_tile and the GIN with dropout
+   0.1: the loss within 1e-6 relative, every gradient, BN statistic,
+   parameter and Adam moment within 1e-6 of the tensor's largest (a
+   parameter whose gradient is below 1e-6 of the largest may move by
+   +-2 lr: Adam's step on rounding noise), the launches a train step with
+   and without remat (the recompute launches each wrapped layer's forward
+   kernel again: GIN 63 K1 against 47, the Transformer 20 K2 against 10,
+   GatedGCN 32 K4 against 16), the peak memory over a step, which remat
+   must lower, and the warm step times; 15c the full-graph Transformer
+   (10x64, 8 heads, the SignNet phi, on 64 complete graphs tiled, under
+   tile_dense) card vs CPU as 15a, no kernel launched (the layer never
+   takes K2/K3's path), its warm step time, and train_zinc.run refusing
+   `model.full_graph`; 15d `bench --mode dense` through its main() (edges/s
+   and step ms, no kernel launched), one train step of the flagship GIN on
+   bench's first dense batch against the same graphs flat (scores within
+   2e-4, losses within 1e-5 relative, no kernel in the dense step), and
+   `masked_eigh` of the batch's [128, 40, 40] Laplacians on the card in
+   f32 and f64 against the CPU's f64 call (eigenvalues, |L v - lambda v|,
+   eigenspace projectors): the card's f64 within 1e-9 (eigenvalues) and
+   1e-6 (projectors); its f32 eigenvalues within 10 s and residuals within
+   40 s, s = eps_f32 * 512, the rounding scale the padding slots' diagonal
+   (256-512) sets for a backward-stable solver.
 
 Phase 1d holds K5 against its plain version over NaN-filled output memory
 (f32 and bf16 at bench_ops' shape N = 3072, D = 128; D = 95; N = 300;
@@ -213,8 +246,8 @@ GAT_CONFIG = os.path.join("configs", "gat_zinc_signinv_gin.json")
 # 1520 (phi layers 2-8: 16 channels of 95); the GatedGCN phi 1088 (16 of
 # 68); the masked GatedGCN phi 74 (layer 1: 2k = 74 channels of width 1)
 # and 4958 (layers 2-8: 74 of 67); the GAT phi 896 (16 of 56) and the PNA
-# phi 1120 (16 of 70); bench_ops 128
-K1_FEATS = (16, 74, 95, 128, 896, 1088, 1120, 1520, 4958)
+# phi 1120 (16 of 70); the GIN LapPE layers 122; bench_ops 128
+K1_FEATS = (16, 74, 95, 122, 128, 896, 1088, 1120, 1520, 4958)
 # each K4 width a path runs: GatedGCN SignNet 68, masked 67, LapPE 77
 K4_FEATS = (68, 67, 77)
 
@@ -1284,6 +1317,347 @@ def _phase_14(record, reset_counts, launches):
         record["filters_vmap"] = out
 
 
+def _phase_15(record, dev, reset_counts, launches, run_path, arrays):
+    """Phase 15: the transformer SignNet phi (15a), remat (15b), the
+    full-graph Transformer (15c) and dense mode (15d), on synthetic ZINC
+    128-graph batches (`arrays`: phase 1's, k = 8 in 256-node tiles).
+    `reset_counts()` sets every kernel's launch counter to 0, `launches()`
+    reads them, `run_path` is main()'s train_zinc.run check."""
+    import numpy as np
+    import torch
+    from signnet_basisnet_tpu_torch import bench
+    from signnet_basisnet_tpu_torch.data import (add_lap_pe, choose_budgets,
+                                                 make_full_graphs,
+                                                 pack_batches,
+                                                 synthetic_zinc)
+    from signnet_basisnet_tpu_torch.graph import (batch_np,
+                                                  dense_from_arrays,
+                                                  from_arrays)
+    from signnet_basisnet_tpu_torch.graph import segment as seg
+    from signnet_basisnet_tpu_torch.models import (gnn_model,
+                                                   set_attention_dropout)
+    from signnet_basisnet_tpu_torch.spectral import (PAD_EIGVAL, masked_eigh,
+                                                     sym_laplacian_dense)
+    from signnet_basisnet_tpu_torch.train_zinc import net_params, run
+    from signnet_basisnet_tpu_torch.training import (adam, build_steps,
+                                                     load_config,
+                                                     make_zinc_predict)
+    gs = synthetic_zinc(512, 0, 0, seed=0)["train"]
+    zeros = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+
+    def cfg_of(path, extra):
+        return load_config(path, extra + [
+            "data.synth_train", "512", "data.synth_eval", "128",
+            "train.epochs", "2", "train.print_epoch_interval", "1",
+            "out_dir", OUT_DIR])
+
+    def zinc_step(model):
+        return build_steps(model, make_zinc_predict(model, model.lap_method),
+                           adam(model.parameters()))[0]
+
+    def no_attention_dropout(net):
+        """A function making the seeded net with the transformer phi's
+        attention dropout off: the two devices' generators draw different
+        bits."""
+        def make():
+            model = gnn_model("GIN", **net)
+            set_attention_dropout(model, 0.0)
+            return model
+        return make
+
+    # -------------------------------------------------------------- 15a
+    tcfg = cfg_of(CONFIG, ["data.agg_backend", "pallas_tile",
+                           "model.sign_inv_net", "transformer",
+                           "name", "gin_transformer_phi"])
+    # 4 epochs of 4 steps: over 2 the mean train loss need not fall yet
+    # (it rose by 4e-3 from epoch 1 to 2 on the CPU, and fell by 1.2e-2 by
+    # epoch 4)
+    tcfg.train.epochs = 4
+    layers = tcfg.model.n_layers
+    with Phase("15a GIN with the transformer phi, card vs CPU"):
+        seg.set_agg_backend("pallas_tile")
+        net = net_params(tcfg, gs)
+        reset_counts()
+        _, info = _check_step_card_vs_cpu(
+            no_attention_dropout(net), None, arrays, zinc_step,
+            plain_on_card=_gate_plain_on_card, floor_cpu_error=True,
+            bn_state=True, many_kinks=True)
+        got = launches()
+        want = dict(zeros, K1=2 * layers)
+        print(f"  launches over the card's train step {got}, expected "
+              f"{want} (the base layers' K1, forward and transposed; the "
+              f"transformer phi launches none)", flush=True)
+        if got != want:
+            raise AssertionError(f"15a: launches {got}")
+        record["transformer_phi_card_vs_cpu"] = info
+    with Phase("15a train_zinc.run with the transformer phi"):
+        res = run_path("gin_transformer_phi", tcfg,
+                       {"K1": (2 * layers, layers)}, {95: layers})
+        losses = [h["train_loss"] for h in res.history]
+        print(f"  train losses by epoch {losses}", flush=True)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"15a: train loss did not fall: {losses}")
+
+    # -------------------------------------------------------------- 15b
+    gs_t = synthetic_zinc(512, 0, 0, seed=0)["train"]
+    cases = {}
+    for tag, path, extra in (
+            ("gin", CONFIG, ["data.agg_backend", "pallas_tile"]),
+            ("gin_dropout", CONFIG, ["data.agg_backend", "pallas_tile",
+                                     "model.dropout", "0.1"]),
+            ("transformer", TRANSFORMER_CONFIG, []),
+            ("gatedgcn", GATEDGCN_CONFIG, ["data.tile", "256",
+                                           "data.agg_backend",
+                                           "pallas_tile"])):
+        cfg = cfg_of(path, extra)
+        k = cfg.model.pos_enc_dim
+        if k == 8:
+            batch_arrays = arrays
+        else:   # the Transformer's k = 16, as phase 4a packs it
+            gs_k = [dict(g) for g in gs_t]
+            add_lap_pe(gs_k, k)
+            nb, eb, gc = choose_budgets(gs_k, 128, tile=256)
+            batch_arrays = pack_batches(gs_k, nb, eb, gc, k=k, tile=256)[0]
+        cases[tag] = (cfg, batch_arrays)
+    for tag, (cfg, batch_arrays) in cases.items():
+        m = cfg.model
+        with Phase(f"15b remat, {tag} ({m.model} {m.n_layers}x"
+                   f"{m.hidden_dim}, {cfg.data.agg_backend}, dropout "
+                   f"{m.dropout})"):
+            seg.set_agg_backend(cfg.data.agg_backend)
+            batch = from_arrays(batch_arrays).to(dev)
+            net = net_params(cfg, gs)
+            out = {}
+            for remat_on in (False, True):
+                model = gnn_model(m.model, **dict(net, remat=remat_on)).to(dev)
+                opt = adam(model.parameters())
+                step = build_steps(model, make_zinc_predict(
+                    model, m.lap_method), opt)[0]
+                reset_counts()
+                with _deterministic():
+                    loss = float(step(batch, 1e-3)["loss"])
+                torch.cuda.synchronize()
+                counts = launches()
+                grads = {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+                state = _train_state_tensors(model, opt)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step(batch, 1e-3)
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                out[remat_on] = dict(loss=loss, counts=counts, grads=grads,
+                                     state=state, peak=peak, step=step)
+            a, b = out[False], out[True]
+            gap = abs(b["loss"] - a["loss"]) / max(abs(a["loss"]), 1e-12)
+            top = max(float(g.abs().max()) for g in a["grads"].values())
+            worst = (0.0, "")
+            for n, g in a["grads"].items():
+                d = float((b["grads"][n] - g).abs().max())
+                worst = max(worst, (d / (1e-6 * float(g.abs().max())
+                                         + 1e-7 * top + 1e-30), f"grad {n}"))
+            for n, t in a["state"].items():
+                d = (b["state"][n].double() - t.double()).abs()
+                bar = 1e-6 * float(t.abs().max()) + 1e-12
+                if n in a["grads"]:
+                    # a parameter whose gradient is below 1e-6 of the
+                    # largest moves by +-lr on its rounding noise in Adam
+                    noise = a["grads"][n].abs() < 1e-6 * top
+                    d = torch.where(noise, torch.clamp(d - 2e-3, min=0), d)
+                worst = max(worst, (float(d.max()) / bar, n))
+            ms = _interleaved_ms({"plain": a["step"], "remat": b["step"]},
+                                 batch, repeats=3, window=5)
+            med = {k: float(np.median(v)) for k, v in ms.items()}
+            print(f"  loss {a['loss']:.9f} vs remat {b['loss']:.9f} "
+                  f"({gap:.2e} relative, bar 1e-6); every gradient, BN "
+                  f"statistic, parameter and Adam moment: worst "
+                  f"{worst[0]:.3f} of its bar (1e-6 of the tensor's largest"
+                  f" value; gradients plus 1e-7 of the largest gradient) at "
+                  f"{worst[1]}", flush=True)
+            print(f"  launches per train step: plain {a['counts']}, remat "
+                  f"{b['counts']}; peak MiB over a step (above what was "
+                  f"allocated before it): plain {a['peak']:.1f}, remat "
+                  f"{b['peak']:.1f}; warm step ms (host clock, median of 3 "
+                  f"windows of 5): plain {med['plain']:.2f}, remat "
+                  f"{med['remat']:.2f}", flush=True)
+            L = m.n_layers
+            want_a = {"gin": dict(zeros, K1=47), "gin_dropout": dict(
+                zeros, K1=47), "transformer": dict(zeros, K2=L, K3=L),
+                "gatedgcn": dict(zeros, K4=L, K1=15)}[tag]
+            # the recompute runs each wrapped layer's forward kernel again
+            extra = {"gin": "K1", "gin_dropout": "K1", "transformer": "K2",
+                     "gatedgcn": "K4"}[tag]
+            want_b = dict(want_a, **{extra: want_a[extra] + L})
+            if a["counts"] != want_a or b["counts"] != want_b:
+                raise AssertionError(f"15b {tag}: launches {a['counts']}, "
+                                     f"{b['counts']}; expected {want_a}, "
+                                     f"{want_b}")
+            if gap > 1e-6 or worst[0] > 1:
+                raise AssertionError(f"15b {tag}: the remat step departs "
+                                     f"from the plain one: {worst}")
+            if not b["peak"] < a["peak"]:
+                raise AssertionError(f"15b {tag}: remat did not lower the "
+                                     f"peak ({a['peak']}, {b['peak']})")
+            record[f"remat_{tag}"] = dict(
+                loss=(a["loss"], b["loss"]), worst=worst,
+                launches=(a["counts"], b["counts"]),
+                peak_mib=(a["peak"], b["peak"]), step_ms=ms)
+            del out, a, b, batch
+
+    # -------------------------------------------------------------- 15c
+    fcfg = cfg_of(TRANSFORMER_CONFIG, ["model.full_graph", "true"])
+    with Phase("15c full-graph Transformer, card vs CPU (tile_dense)"):
+        seg.set_agg_backend(fcfg.data.agg_backend)
+        k = fcfg.model.pos_enc_dim
+        gs_f = [dict(g) for g in gs[:64]]
+        add_lap_pe(gs_f, k)
+        full = make_full_graphs(gs_f)
+        nb, eb, gc = choose_budgets(full, 64, tile=256)
+        f_arrays = pack_batches(full, nb, eb, gc, k=k, tile=256)[0]
+        print(f"  64 complete graphs: {nb} node slots, "
+              f"{int(f_arrays['edge_mask'].sum())} edges, "
+              f"{int(f_arrays['edge_real'].sum())} of them real", flush=True)
+        fnet = net_params(fcfg, gs)
+        assert fnet["full_graph"]
+        reset_counts()
+        (f_step, f_batch), info = _check_step_card_vs_cpu(
+            "Transformer", fnet, f_arrays, zinc_step,
+            plain_on_card=contextlib.nullcontext, floor_cpu_error=True,
+            bn_state=True, many_kinks=True)
+        got = launches()
+        print(f"  launches over the card's steps {got} (expected none: the "
+              f"full-graph layer bypasses K2/K3, the phi aggregates by the "
+              f"block adjacency)", flush=True)
+        if got != zeros:
+            raise AssertionError(f"15c: launches {got}")
+        ms = _interleaved_ms({"full_graph": f_step}, f_batch, repeats=3,
+                             window=5)["full_graph"]
+        print(f"  warm full-graph step (host clock, 3 windows of 5): median "
+              f"{float(np.median(ms)):.2f} ms, {[round(t, 2) for t in ms]}",
+              flush=True)
+        try:
+            run(fcfg, device="cuda", log=lambda s: None)
+        except NotImplementedError as err:
+            if "make_full_graph" not in str(err):
+                raise
+            print(f"  train_zinc.run refuses model.full_graph: {err}",
+                  flush=True)
+        else:
+            raise AssertionError("15c: train_zinc.run ran model.full_graph")
+        record["full_graph"] = dict(card_vs_cpu=info, step_ms=ms,
+                                    launches=got)
+        del f_step, f_batch
+
+    # -------------------------------------------------------------- 15d
+    with Phase("15d bench --mode dense (main)"):
+        reset_counts()
+        line = bench.main(["--mode", "dense"])
+        got = launches()
+        d = line["modes"]["dense"]
+        print(f"  dense: {d['edges_per_s']:.0f} edges/s, step "
+              f"{d['step_ms']:.2f} ms; flat eager {line['flat_eager_eps']:.0f}"
+              f" edges/s; launches {got} (expected none)", flush=True)
+        if got != zeros or not d["edges_per_s"] > 0:
+            raise AssertionError(f"15d: launches {got}, {d}")
+        record["bench_dense"] = line
+    with Phase("15d dense against flat, masked eigh card vs CPU"):
+        # bench's first dense batch (128 graphs in [128, 40, ...] blocks)
+        # and the same graphs flat in 128 x 40 node slots, so that both
+        # hold the same padding rows, which the phi's rho BatchNorm (no
+        # mask) counts; one train step of the flagship GIN from one init
+        # on each: the scores of the 128 graphs in the step's forward
+        # (batch statistics) within 2e-4 (JAX tests/test_dense_mode.py's
+        # bar) and the losses within 1e-5 relative
+        seg.set_agg_backend("xla")
+        d_arrays = bench.build_dense_batches(num_batches=1)[0]
+        chunk = synthetic_zinc(128, 8, 8, seed=bench.SEED)["train"]
+        add_lap_pe(chunk, bench.K)
+        f_arrays = batch_np(chunk, 128 * bench.DENSE_MAX_NODES,
+                            sum(len(g["senders"]) for g in chunk) + 8, 129,
+                            k=bench.K)
+        assert (f_arrays["n_node"][:128] == d_arrays["n_node"]).all()
+        dense_b = dense_from_arrays(d_arrays).to(dev)
+        flat_b = from_arrays(f_arrays).to(dev)
+        scores, losses, got = {}, {}, {}
+        for tag, b in (("dense", dense_b), ("flat", flat_b)):
+            model = gnn_model("GIN", **bench.NET).to(dev)
+            seen = []
+            hook = model.mlp_readout.register_forward_hook(
+                lambda mod, i, o: seen.append(o[:128, 0].detach().clone()))
+            reset_counts()
+            losses[tag] = float(zinc_step(model)(b, 1e-3)["loss"])
+            torch.cuda.synchronize()
+            got[tag] = launches()
+            hook.remove()
+            scores[tag] = seen[0]
+        err = float((scores["dense"] - scores["flat"]).abs().max())
+        lgap = abs(losses["dense"] - losses["flat"]) / abs(losses["flat"])
+        print(f"  train step, dense vs flat (same init): scores of the 128 "
+              f"graphs max |diff| {err:.3e} (bar 2e-4), losses "
+              f"{losses['dense']:.7f} vs {losses['flat']:.7f} ({lgap:.2e} "
+              f"relative, bar 1e-5); K1-K5 launches in the dense step "
+              f"{got['dense']}", flush=True)
+        if got["dense"] != zeros or not (err <= 2e-4 and lgap <= 1e-5):
+            raise AssertionError(f"15d: dense vs flat {err}, {lgap}, "
+                                 f"launches {got['dense']}")
+        # masked_eigh of the batch's Laplacians: the card's f32 and f64
+        # calls and the CPU's f32 one, each against the CPU's f64 one.  The
+        # padding slots' diagonal (256-512) sets the scale s = eps * 512 of
+        # a backward-stable solver's f32 rounding in every pair (the CPU's
+        # LAPACK keeps the decoupled padding block apart and does better),
+        # so the card's f32 call is held to 10 s on the eigenvalues and
+        # 40 s (n s) on |L v - lambda v|, its projectors printed; its f64
+        # call to 1e-9 (eigenvalues) and 1e-6 (projectors)
+        L = sym_laplacian_dense(dense_b.adj, dense_b.node_mask)
+        mask = dense_b.node_mask
+        ref = [t.numpy() for t in masked_eigh(L.cpu().double(),
+                                              mask.cpu().double())[:2]]
+        runs = {"card_f32": masked_eigh(L, mask),
+                "card_f64": masked_eigh(L.double(), mask.double()),
+                "cpu_f32": masked_eigh(L.cpu(), mask.cpu())}
+        L64 = L.cpu().double().numpy()
+
+        def eig_errors(vals, vecs):
+            """(eigenvalues, |L v - lambda v| on the real block, eigenspace
+            projectors) against the CPU's f64 call; eigenspaces are runs
+            of its eigenvalues less than 1e-3 apart."""
+            vals = vals.cpu().double().numpy()
+            vecs = vecs.cpu().double().numpy()
+            v_err = float(np.abs(vals - ref[0]).max())
+            resid = float(np.abs(L64 @ vecs - vecs * vals[:, None, :]).max())
+            proj = 0.0
+            for g in range(L64.shape[0]):
+                n = int(d_arrays["n_node"][g])
+                cv, start = ref[0][g], 0
+                for j in range(1, n + 1):
+                    if j == n or cv[j] - cv[j - 1] > 1e-3:
+                        P = ref[1][g][:, start:j] @ ref[1][g][:, start:j].T
+                        Q = vecs[g][:, start:j] @ vecs[g][:, start:j].T
+                        proj = max(proj, float(np.abs(P - Q).max()))
+                        start = j
+            return v_err, resid, proj
+
+        errs = {k: eig_errors(*r[:2]) for k, r in runs.items()}
+        eig_ms = _cuda_time_ms(lambda: masked_eigh(L, mask), iters=10)
+        print(f"  masked_eigh of [{L.shape[0]}, {L.shape[1]}, {L.shape[2]}] "
+              f"Laplacians against the CPU's f64 call, (eigenvalues, |L v - "
+              f"lambda v|, projectors): " + "; ".join(
+                  f"{k} " + ", ".join(f"{e:.2e}" for e in v)
+                  for k, v in errs.items())
+              + f"; the card's f32 call {eig_ms:.3f} ms (CUDA events)",
+              flush=True)
+        c32, c64 = errs["card_f32"], errs["card_f64"]
+        scale = float(torch.finfo(torch.float32).eps) * 2 * PAD_EIGVAL
+        if not (c64[0] <= 1e-9 and c64[2] <= 1e-6 and c32[0] <= 10 * scale
+                and c32[1] <= L.shape[-1] * scale):
+            raise AssertionError(f"15d: masked_eigh card vs CPU {errs}")
+        record["dense_vs_flat"] = dict(err=err, losses=losses,
+                                       launches=got["dense"],
+                                       masked_eigh=errs, eig_ms=eig_ms)
+
+
 def main():
     _fail_without_checkout_or_card()
     os.chdir(ROOT)
@@ -1400,7 +1774,8 @@ def main():
                                      f"version at {int(bad.sum())} entries")
 
         # every F a path launches K1 with (GIN 16, 95, 1520; the GatedGCN
-        # phi 1088; the masked GatedGCN phi 74 and 74 * 67 = 4958, which
+        # phi 1088; the GIN LapPE layers 122; the masked GatedGCN phi 74 and
+        # 74 * 67 = 4958, which
         # takes the one-element loads; the GAT and PNA phis 896 and 1120;
         # bench_ops 128), 256 and 512 (32 and 64 lanes per row): each picks
         # its own variant
@@ -3051,6 +3426,9 @@ def main():
 
     # --------------------------------------------------------------- 14
     _phase_14(record, reset_counts, counts)
+
+    # --------------------------------------------------------------- 15
+    _phase_15(record, dev, reset_counts, counts, run_path, arrays)
 
     kernels = [kern, kern2, kern3, kern4, kern5]
     record["kernels"] = kernels

@@ -28,7 +28,12 @@ last loss's value.  Edges are the batches' real (unmasked) edges.
   interleaved windows (host clock, ms per step: median, min, max).
 - `auto`: `flat` and the six captured modes; reports the fastest captured
   mode.  Each mode's edges/s goes to stderr.
-- `dense`: not ported (graph/dense.py, ROADMAP.md queue 1 item 19); raises.
+- `dense`: the eager step on dense block batches (graph/dense.py: each
+  128-graph batch as [128, 40, 40] adjacency blocks, `dense_batch_np(...,
+  128, 40, k=8)`), the same model and weights' seed: aggregation is a
+  batched einsum and no kernel runs, as in the JAX script's
+  `bench_tpu_dense`.  Its edges are the adjacency's ones.  As in the JAX
+  script, `auto` leaves it out.
 
 A mode that fails fails the run: nothing is caught.  The last line of
 stdout is one JSON object with the JAX script's keys (`metric`, `value`,
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 
 from .data import add_lap_pe, choose_budgets, pack_batches, synthetic_zinc
-from .graph import from_arrays
+from .graph import dense_batch_np, dense_from_arrays, from_arrays
 from .graph import segment as seg
 from .models import gnn_model
 from .training import (adam, build_steps, capture_train_step,
@@ -70,6 +75,7 @@ PHI_OUT = 4
 NUM_BATCHES = 4
 SEED = 0
 TILE = 256  # tile-local layout: the node tile of K1 and the block adjacency
+DENSE_MAX_NODES = 40  # dense mode's blocks: ZINC graphs have <= 38 nodes
 LR = 1e-3
 NET = dict(hidden_dim=HIDDEN, out_dim=HIDDEN, n_layers=N_LAYERS,
            pos_enc_dim=K, lap_method="sign_inv",
@@ -101,6 +107,19 @@ def build_batches(num_batches=NUM_BATCHES, tile=None,
     add_lap_pe(train, k)
     nb, eb, gc = choose_budgets(train, batch_graphs, tile=tile)
     return pack_batches(train, nb, eb, gc, k=k, tile=tile)
+
+
+def build_dense_batches(num_batches=NUM_BATCHES, batch_graphs=BATCH_GRAPHS,
+                        k=K, max_nodes=DENSE_MAX_NODES):
+    """The JAX script's dense batches: the same graphs as `build_batches`',
+    each chunk of `batch_graphs` packed in [batch_graphs, max_nodes, ...]
+    blocks (numpy arrays)."""
+    train = synthetic_zinc(num_train=batch_graphs * num_batches, num_val=8,
+                           num_test=8, seed=SEED)["train"]
+    add_lap_pe(train, k)
+    return [dense_batch_np(train[i * batch_graphs:(i + 1) * batch_graphs],
+                           batch_graphs, max_nodes, k=k)
+            for i in range(num_batches)]
 
 
 @contextlib.contextmanager
@@ -200,6 +219,14 @@ def bench_eager(batches, device, sum_backend="xla", net=NET, steps=STEPS,
         host = [from_arrays(a) for a in batches]
         gbs = [gb.to(device) for gb in host]
         return time_steps(eager_step(net, device), gbs, host, steps, warmup)
+
+
+def bench_dense(batches, device, net=NET, steps=STEPS, warmup=WARMUP):
+    """The eager step on dense `batches`: summary of the best timed loop
+    (edges_per_s, step_ms, ...)."""
+    host = [dense_from_arrays(a) for a in batches]
+    gbs = [gb.to(device) for gb in host]
+    return time_steps(eager_step(net, device), gbs, host, steps, warmup)
 
 
 def bench_captured(batches, device, agg_backend="xla", compute_dtype=None,
@@ -327,10 +354,6 @@ def main(argv=None) -> dict:
                     help="write a torch.profiler trace of 3 eager and 3 "
                          "captured steps of each captured mode into DIR")
     args = ap.parse_args(argv)
-    if args.mode == "dense":
-        raise NotImplementedError(
-            "--mode dense: the dense block-diagonal path (graph/dense.py) "
-            "is not ported yet (ROADMAP.md queue 1 item 19)")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: bench measures the card")
     dev = torch.device("cuda")
@@ -345,6 +368,10 @@ def main(argv=None) -> dict:
         runs = {"flat": bench_eager(flat, dev)}
         if args.mode == "onehot":
             runs["onehot"] = bench_eager(flat, dev, sum_backend="onehot")
+        if args.mode == "dense":
+            runs["dense"] = bench_dense(build_dense_batches(), dev)
+            print(f"dense: eager step {runs['dense']['step_ms']:.2f} ms "
+                  f"(host clock, best of 3 loops of {STEPS})", flush=True)
         todo = (list(CAPTURED) if args.mode == "auto"
                 else [args.mode] if args.mode in CAPTURED else [])
         for mode in todo:

@@ -11,7 +11,10 @@ them into the port's parameters and buffers:
 - GAT's attention vectors `attn_src`/`attn_dst` (1, H, F) as they are, and
   the bare `bias` of GAT and GCN (beside their `weight/{kernel,bias}`
   Linear) -> the layer's `bias`;
-- the GIN-family convs' learnt scalar `eps` as it is;
+- the GIN-family convs' learnt scalar `eps` and the full-graph
+  attention's learnt scalar `gamma` (a leaf of a module named
+  `attention` only) as they are (its `Q_2`, `K_2` and `E_2` are Linears
+  like `Q`, `K` and `E`);
 - the leaves with no Linear rule as they are: IGN's `coeffs`, `diag_bias`
   and [1, S, 1(, 1)] `bias`, GPRNet's `temp`, BernNet's `coe`, the bare
   `bias_i` of GcnNet and ChebNet;
@@ -20,8 +23,10 @@ them into the port's parameters and buffers:
   [out, H*hd], their [H, hd] biases flattened; `nn.LayerNorm`'s `scale`
   -> `weight`.
 
-Module paths map one to one (flax's OptimizedLSTMCell's eight Linears
-`ii`, `if`, `ig`, `io`, `hi`, `hf`, `hg`, `ho` are the port's LSTMCell's),
+Module paths map one to one (the transformer SignNet phi's `embed`,
+`sab_i` and `rho`; `MLPReadout2`'s `fc_i`; flax's OptimizedLSTMCell's
+eight Linears `ii`, `if`, `ig`, `io`, `hi`, `hf`, `hg`, `ho` are the
+port's LSTMCell's),
 except where flax makes a GIN layer's update net beside the layer: the ZINC
 nets' `mlp_i` (top level, or under the DeepSigns phi `enc`) is the port's
 `layer_i.mlp` (`conv_i.mlp` inside the phi), the PyG GNN's `conv_i_nn`
@@ -69,7 +74,9 @@ def torch_name(path: tuple) -> str:
         if p == "update_net":
             parts[i] = "mlp"
     leaf = path[-1]
-    if leaf not in _LEAF and not _BARE.fullmatch(leaf):
+    # the full-graph attention's gamma, and no other leaf of that name
+    gamma = leaf == "gamma" and parts[-1:] == ["attention"]
+    if leaf not in _LEAF and not _BARE.fullmatch(leaf) and not gamma:
         raise KeyError(f"flax leaf {'/'.join(path)}: no rule in the bridge")
     return ".".join(parts + [_LEAF.get(leaf, leaf)])
 

@@ -261,6 +261,14 @@ def batch_np(graphs, num_nodes: int, num_edges: int, num_graphs: int,
         pad_shape = (num_graphs - ys.shape[0],) + ys.shape[1:]
         out["y"] = np.concatenate([ys, np.zeros(pad_shape, ys.dtype)], axis=0)
 
+    # per-edge extras: the full graph's `edge_real` flags and GraphiT's
+    # `k_rw` weights (data/transforms.py), padded and sorted as the edges
+    for extra in ("edge_real", "k_rw"):
+        if all(extra in g for g in graphs):
+            er = np.concatenate([np.asarray(g[extra], np.float32)
+                                 for g in graphs])
+            out[extra] = _pad_rows(er, num_edges)[order]
+
     if has["eigvecs"]:
         if k is None:
             k = max(v.shape[1] for v in eig["eigvecs"])
@@ -327,6 +335,60 @@ def from_arrays(arrays: Dict[str, np.ndarray]) -> GraphBatch:
                                              main["receivers"],
                                              len(arrays["node_mask"]))))
     return GraphBatch(**main, extras=extras)
+
+
+def dense_node_index(gb: GraphBatch):
+    """Each node's (graph, slot in its graph): the slot is the node's
+    index less its graph's first node, `extras['node_offset']` on a tiled
+    batch, else the cumulative node counts (a flat batch keeps each
+    graph's nodes contiguous).  A padding node's slot is past its
+    graph's nodes, or below 0 on a tiled batch."""
+    if "node_offset" in gb.extras:
+        offsets = gb.extras["node_offset"].long()
+    else:
+        counts = gb.n_node.long()
+        offsets = torch.cumsum(counts, 0) - counts
+    gid = gb.graph_id.long()
+    idx = torch.arange(gb.num_nodes, device=gid.device) - offsets[gid]
+    return gid, idx
+
+
+def _dense_slots(gb: GraphBatch, n_max: int):
+    """(graph, slot) of each node, the slot clamped to [0, n_max - 1], and
+    which nodes write their slot in `to_dense_nodes`: the real ones, but of
+    those clamped to n_max - 1 only their graph's last node."""
+    gid, idx = dense_node_index(gb)
+    slot = torch.clamp(idx, 0, n_max - 1)
+    last = idx == gb.n_node.long()[gid] - 1
+    writes = (gb.node_mask > 0) & ((idx < n_max - 1) | last)
+    return gid, slot, writes
+
+
+def to_dense_nodes(gb: GraphBatch, x: torch.Tensor, n_max: int):
+    """Flat node rows x [N, ...] scattered to [G, n_max, ...], and the
+    mask [G, n_max] of the slots that real nodes fill (the dense layout of
+    per-graph attention).  A graph of more than n_max nodes keeps its
+    first n_max - 1 nodes and its last one in the last slot, as the JAX
+    scatter's last write leaves it.  Every other node (padding nodes, a
+    large graph's clamped ones) writes to a spare slot n_max that is then
+    cut off, so each kept slot has one writer and the result is the same
+    in any order of the writes, with static shapes (no host sync)."""
+    gid, slot, writes = _dense_slots(gb, n_max)
+    slot = torch.where(writes, slot, n_max)
+    dense = x.new_zeros((gb.num_graphs, n_max + 1) + tuple(x.shape[1:]))
+    dense = dense.index_put((gid, slot), x)
+    mask = gb.node_mask.new_zeros((gb.num_graphs, n_max + 1))
+    mask = mask.index_put((gid, slot), gb.node_mask)
+    return dense[:, :n_max], mask[:, :n_max]
+
+
+def from_dense_nodes(gb: GraphBatch, dense: torch.Tensor):
+    """The inverse of to_dense_nodes: each node's slot gathered back to
+    the flat [N, ...] layout, padding nodes zero."""
+    gid, slot, _ = _dense_slots(gb, dense.shape[1])
+    out = dense[gid, slot]
+    return out * gb.node_mask.reshape(
+        (-1,) + (1,) * (out.dim() - 1)).to(out.dtype)
 
 
 def len_nodes(g) -> int:

@@ -9,7 +9,8 @@ from .conv import (GATConv, GCNConv, GatedGCNLSPELayer, GINConv, GINEConv,
 from .gnn import GNN, SignNetGNN, make_conv, set_attention_dropout
 from .pe import apply_lap_method
 from .signnet import (GNN3d, GINDeepSigns, KChannelGNN, MaskedGINDeepSigns,
-                      SignNet, SignPlus, sign_fuse, sign_unfuse)
+                      SignNet, SignPlus, TransformerDeepSigns, sign_fuse,
+                      sign_unfuse)
 from .zinc_models import (GATNet, GINNet, PNANet, TransformerNet, ZincNet,
                           gnn_model, lapeig_loss, normalize_p,
                           sign_inv_module)

@@ -32,7 +32,7 @@ class GINEBondConv(nn.Module):
         self.mlp_2 = Linear(features, features)
 
     def forward(self, gb, x, edge_attr):
-        refuse_dense(gb)
+        refuse_dense(gb, "GINEBondConv")
         e = self.bond_2(torch.relu(self.bond_1(edge_attr)))
         src = src_features(x, gb).index_select(0, gb.senders.long())
         agg = seg.aggregate_edges(torch.relu(src + e), gb.receivers,

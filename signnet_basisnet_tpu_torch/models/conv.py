@@ -12,9 +12,21 @@ Port of signnet_basisnet_tpu/models/conv.py:26-58,61-125 (`neighbor_sum`,
 the simplified PNA reach no kernel: their JAX layers are XLA segment ops,
 so here they are plain torch ops over `graph.segment` (the GIN convs'
 `neighbor_sum` reaches K1 only on a tiled batch under 'pallas_tile').
-The dense-batch branches (`DenseGraphBatch`) and the full-graph
-transformer are later slices of the port (ROADMAP.md queue 1): a layer
-given anything but a flat `GraphBatch` refuses it (`refuse_dense`).
+
+Dense batches (`graph.dense.DenseGraphBatch`, [G, M, M] adjacency) take
+the JAX package's dense branches: `neighbor_sum` as a batched einsum (so
+`GINConv` and `MaskedGINConv` too), `pool_any` as a masked sum over the
+node axis, and `GINEConv` and `MaskedGINEConv` with their messages over
+[G, M(dst), M(src), ...] edge features; no kernel runs there.  The layers
+with no dense branch in the JAX package (GCN, GAT, GatedGCN, PNA, the
+simplified PNA, the Transformer and NetGINE's conv read `gb.senders`,
+which a dense batch lacks) refuse a dense batch (`refuse_dense`).
+
+The full-graph Transformer (`full_graph=True`, on batches of
+`data.transforms.make_full_graph` graphs) mixes two score maps by the
+`edge_real` flag of each edge and reweights the fake edges by a learnt
+gamma, in plain torch: it never takes the K2/K3 path, as the JAX layer
+never takes its fused kernel there.
 """
 from __future__ import annotations
 
@@ -25,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..graph import CSR_KEYS, GraphBatch, segment as seg
+from ..graph import CSR_KEYS, segment as seg
+from ..graph.dense import DenseGraphBatch, dense_neighbor_sum, dense_pool
 from ..nn.dropout import Dropout
 from ..nn.init import ACTIVATIONS, Embedding, Linear
 from ..nn.mlp import MLP, ElementsMLP, MaskedMLP
@@ -41,8 +54,11 @@ def neighbor_sum(x, gb):
     Backend (graph.segment.set_agg_backend) on a tiled batch: 'pallas_tile'
     goes through the tile-local SpMM (its CUDA kernel on CUDA tensors, its
     plain version on CPU ones); 'tile_dense' through the block adjacency.
-    Otherwise the flat masked gather + index_add_.
+    Otherwise the flat masked gather + index_add_.  On a dense batch,
+    adj @ x (x [G, M, ...]).
     """
+    if isinstance(gb, DenseGraphBatch):
+        return dense_neighbor_sum(gb.adj, x)
     backend = seg.get_agg_backend()
     if backend == "tile_dense" and "tile_starts" in gb.extras:
         bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
@@ -69,14 +85,14 @@ def refuse_halo(gb):
             "(ROADMAP.md queue 1 item 20)")
 
 
-def refuse_dense(gb):
-    """Dense batches (the JAX `DenseGraphBatch`: [G, M, M] adjacency, [G,
-    M, ...] nodes) are not ported: a layer with a dense branch refuses
-    anything but a flat GraphBatch."""
-    if not isinstance(gb, GraphBatch):
-        raise NotImplementedError(
-            f"dense batches ({type(gb).__name__}) are not ported yet "
-            "(ROADMAP.md queue 1 item 19)")
+def refuse_dense(gb, layer: str):
+    """A layer with no dense branch in the JAX package refuses a dense
+    batch, on which the JAX layer fails reading `gb.senders`."""
+    if isinstance(gb, DenseGraphBatch):
+        raise TypeError(
+            f"{layer} has no dense-batch branch: the JAX layer reads "
+            "gb.senders, which a DenseGraphBatch does not have; pack the "
+            "graphs with graph.batch_np")
 
 
 def src_features(x, gb):
@@ -93,7 +109,10 @@ def batch_csr(gb):
 
 
 def pool_any(gb, x, reduce="sum"):
-    """Per-graph pooling of node features."""
+    """Per-graph pooling of node features, flat [N, ...] or dense [G, M,
+    ...]."""
+    if isinstance(gb, DenseGraphBatch):
+        return dense_pool(x, gb.node_mask, reduce=reduce)
     return seg.pool_nodes(x, gb.graph_id, gb.num_graphs,
                           node_mask=gb.node_mask, reduce=reduce)
 
@@ -119,7 +138,6 @@ class GINConv(nn.Module):
         self.eps = nn.Parameter(torch.zeros(())) if learn_eps else None
 
     def forward(self, gb, x):
-        refuse_dense(gb)
         agg = neighbor_sum(x, gb)
         out = x + agg if self.eps is None else (1.0 + self.eps) * x + agg
         # BN inside the MLP must ignore padding rows
@@ -141,9 +159,14 @@ class GINEConv(nn.Module):
         self.eps = nn.Parameter(torch.zeros(())) if learn_eps else None
 
     def forward(self, gb, x, edge_attr):
-        refuse_dense(gb)
-        src = src_features(x, gb).index_select(0, gb.senders.long())
-        agg = _edge_sum(gb, torch.relu(src + edge_attr))
+        if isinstance(gb, DenseGraphBatch):
+            # edge_attr [G, M(dst), M(src), D]: relu(x_src + e) summed over
+            # the sources the adjacency holds
+            msg = torch.relu(x[:, None, :, :] + edge_attr)
+            agg = torch.einsum("gmn,gmnd->gmd", gb.adj.to(msg.dtype), msg)
+        else:
+            src = src_features(x, gb).index_select(0, gb.senders.long())
+            agg = _edge_sum(gb, torch.relu(src + edge_attr))
         out = x + agg if self.eps is None else (1.0 + self.eps) * x + agg
         return self.mlp(out, mask=node_mask_like(gb, out))
 
@@ -161,7 +184,6 @@ class MaskedGINConv(nn.Module):
                             with_final_activation=False, hidden=hidden)
 
     def forward(self, gb, x, mask=None):
-        refuse_dense(gb)
         out = (1.0 + self.eps) * x + neighbor_sum(x, gb)
         return self.nn(out, mask=mask)
 
@@ -181,16 +203,26 @@ class MaskedGINEConv(nn.Module):
                             with_final_activation=False, hidden=hidden)
 
     def forward(self, gb, x, edge_attr, mask=None):
-        refuse_dense(gb)
-        src = src_features(x, gb).index_select(0, gb.senders.long())
-        e = edge_attr
-        if src.dim() == e.dim() + 1:
-            e = e[:, None, :]
-        if src.shape[-1] not in (1, e.shape[-1]):
-            raise ValueError(
-                f"MaskedGINEConv feature mismatch: x D={src.shape[-1]} "
-                f"vs edge D={e.shape[-1]} (only D=1 may broadcast)")
-        out = (1.0 + self.eps) * x + _edge_sum(gb, torch.relu(src + e))
+        if isinstance(gb, DenseGraphBatch):
+            # edge_attr [G, M(dst), M(src), D]; x [G, M, D] or [G, M, K, D]
+            adj = gb.adj.to(x.dtype)
+            if x.dim() == 4:
+                msg = torch.relu(x[:, None] + edge_attr[:, :, :, None, :])
+                agg = torch.einsum("gmn,gmnkd->gmkd", adj, msg)
+            else:
+                msg = torch.relu(x[:, None] + edge_attr)
+                agg = torch.einsum("gmn,gmnd->gmd", adj, msg)
+        else:
+            src = src_features(x, gb).index_select(0, gb.senders.long())
+            e = edge_attr
+            if src.dim() == e.dim() + 1:
+                e = e[:, None, :]
+            if src.shape[-1] not in (1, e.shape[-1]):
+                raise ValueError(
+                    f"MaskedGINEConv feature mismatch: x D={src.shape[-1]} "
+                    f"vs edge D={e.shape[-1]} (only D=1 may broadcast)")
+            agg = _edge_sum(gb, torch.relu(src + e))
+        out = (1.0 + self.eps) * x + agg
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return self.nn(out, mask=mask)
@@ -214,6 +246,7 @@ class GCNConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, gb, x):
+        refuse_dense(gb, "GCNConv")
         refuse_halo(gb)
         deg = gb.in_degrees()
         if self.add_self_loops:
@@ -268,6 +301,7 @@ class GATConv(nn.Module):
                 a.uniform_(-bound, bound, generator=generator)
 
     def forward(self, gb, x):
+        refuse_dense(gb, "GATConv")
         refuse_halo(gb)
         H, Fh, n = self.num_heads, self.features, gb.num_nodes
         src, dst = gb.senders.long(), gb.receivers.long()
@@ -333,6 +367,7 @@ class GatedGCNLayer(nn.Module):
             self.bn_e = MaskedBatchNorm(features)
 
     def forward(self, gb, h, e, snorm_n=None):
+        refuse_dense(gb, "GatedGCNLayer")
         refuse_halo(gb)
         h_in, e_in = h, e
         Ah, Bh, Dh, Eh = (getattr(self, m)(h) for m in "ABDE")
@@ -393,6 +428,7 @@ class GatedGCNLSPELayer(nn.Module):
             self.bn_e = MaskedBatchNorm(features)
 
     def forward(self, gb, h, p, e):
+        refuse_dense(gb, "GatedGCNLSPELayer")
         refuse_halo(gb)
         h_in, p_in, e_in = h, p, e
         hp = torch.cat([h, p], dim=-1)
@@ -556,6 +592,7 @@ class PNALayer(nn.Module):
         self.mixing = Linear(towers * tower_out, features)
 
     def forward(self, gb, h, e, snorm_n=None):
+        refuse_dense(gb, "PNALayer")
         refuse_halo(gb)
         w = self.tower_in
         outs = [getattr(self, f"tower_{t}")(
@@ -601,6 +638,7 @@ class PNANoTowersLayer(nn.Module):
             self.bn_h = MaskedBatchNorm(features)
 
     def forward(self, gb, h, e, snorm_n=None):
+        refuse_dense(gb, "PNANoTowersLayer")
         refuse_halo(gb)
         h = self.drop(h)
         if self.edge_features:
@@ -647,7 +685,7 @@ class SimplifiedPNAConv(nn.Module):
                                    with_final_activation=False)
 
     def forward(self, gb, x, edge_attr=None):
-        refuse_dense(gb)
+        refuse_dense(gb, "SimplifiedPNAConv")
         x_src = src_features(x, gb)
         z = [x.index_select(0, gb.receivers.long()),
              x_src.index_select(0, gb.senders.long())]
@@ -670,14 +708,23 @@ class GraphTransformerAttention(nn.Module):
     their plain version on CPU ones), as the JAX layer engages its fused
     kernel there on any backend but the CPU; otherwise through the
     reference form, where every edge counts.
+
+    With `full_graph` (batches of complete graphs whose `edge_real` extra
+    flags the graph's own edges) it never takes the kernels' path: with
+    `use_edge` a real edge scores K_src . Q_dst * E1 and a fake one
+    K2_src . Q2_dst * E2 (projections `Q_2`, `K_2`, `E_2`); the clamped
+    exp is divided by gamma + 1 on a real edge and multiplied by
+    gamma / (gamma + 1) on a fake one, gamma a learnt scalar from 0.1,
+    clipped to [0, 1].
     """
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int,
-                 use_edge: bool = False):
+                 use_edge: bool = False, full_graph: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.out_dim = out_dim
         self.use_edge = use_edge
+        self.full_graph = full_graph
         width = num_heads * out_dim
         # no biases, as on every JAX path that builds this layer
         self.Q = Linear(in_dim, width, use_bias=False)
@@ -685,10 +732,38 @@ class GraphTransformerAttention(nn.Module):
         self.V = Linear(in_dim, width, use_bias=False)
         if use_edge:
             self.E = Linear(in_dim, width, use_bias=False)
+        if use_edge and full_graph:
+            self.Q_2 = Linear(in_dim, width, use_bias=False)
+            self.K_2 = Linear(in_dim, width, use_bias=False)
+            self.E_2 = Linear(in_dim, width, use_bias=False)
+        if full_graph:
+            self.gamma = nn.Parameter(torch.full((), 0.1))
+
+    def _full_graph(self, gb, h, e, q, k, v):
+        H, D = self.num_heads, self.out_dim
+        s, r = gb.senders.long(), gb.receivers.long()
+        real = gb.extras["edge_real"][:, None, None] > 0
+        score = k[s] * q[r] / math.sqrt(D)
+        if self.use_edge:
+            e1, e2 = (m(e).reshape(-1, H, D) for m in (self.E, self.E_2))
+            q2, k2 = (m(h).reshape(-1, H, D) for m in (self.Q_2, self.K_2))
+            score = torch.where(real, score * e1,
+                                k2[s] * q2[r] / math.sqrt(D) * e2)
+        ex = torch.exp(torch.clamp(score.sum(-1, keepdim=True), -5.0, 5.0))
+        gamma = torch.clamp(self.gamma, 0.0, 1.0)
+        ex = torch.where(real, ex / (gamma + 1.0),
+                         gamma * ex / (gamma + 1.0))
+        ex = ex * gb.edge_mask[:, None, None].to(ex.dtype)
+        wv = seg.segment_sum(ex * v[s], gb.receivers, gb.num_nodes)
+        z = seg.segment_sum(ex, gb.receivers, gb.num_nodes)
+        return wv / (z + 1e-6)
 
     def forward(self, gb, h, e):
+        refuse_dense(gb, "GraphTransformerAttention")
         H, D = self.num_heads, self.out_dim
         q, k, v = (m(h).reshape(-1, H, D) for m in (self.Q, self.K, self.V))
+        if self.full_graph:
+            return self._full_graph(gb, h, e, q, k, v)
         if self.use_edge:
             e1 = self.E(e).reshape(-1, H, D)
         else:
@@ -714,7 +789,8 @@ class GraphTransformerLayer(nn.Module):
 
     def __init__(self, features: int, num_heads: int, layer_norm: bool = False,
                  batch_norm: bool = True, residual: bool = True,
-                 use_edge: bool = False, dropout: float = 0.0, rng=None):
+                 use_edge: bool = False, dropout: float = 0.0, rng=None,
+                 full_graph: bool = False):
         super().__init__()
         self.drop = Dropout(dropout, rng)
         self.features = features
@@ -722,7 +798,8 @@ class GraphTransformerLayer(nn.Module):
         self.batch_norm = batch_norm
         self.residual = residual
         self.attention = GraphTransformerAttention(
-            features, features // num_heads, num_heads, use_edge=use_edge)
+            features, features // num_heads, num_heads, use_edge=use_edge,
+            full_graph=full_graph)
         self.O_h = Linear(features, features)
         self.ffn1 = Linear(features, 2 * features)
         self.ffn2 = Linear(2 * features, features)

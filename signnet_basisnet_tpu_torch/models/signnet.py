@@ -2,10 +2,12 @@
 
 Port of signnet_basisnet_tpu/models/signnet.py:38-48 (`sign_fuse`,
 `sign_unfuse`), :51-134 (`GNN3d`, `SignNet`, `SignPlus`), :137-182
-(`_KChannelGNN`, gin and gat kinds), :185-210 (`GINDeepSigns`, fixed k)
-and :213-239 (`MaskedGINDeepSigns`, all eigenvectors): f(v_1..v_k) =
-rho([phi(v_i) + phi(-v_i)]_i), with the (+v, -v) pair fused along the k
-axis into one phi call over [N, 2k, D].
+(`_KChannelGNN`, gin and gat kinds), :185-210 (`GINDeepSigns`, fixed k),
+:213-239 (`MaskedGINDeepSigns`, all eigenvectors) and :245-297
+(`TransformerDeepSigns`): f(v_1..v_k) = rho([phi(v_i) + phi(-v_i)]_i),
+with the (+v, -v) pair fused along the k axis into one phi call over
+[N, 2k, D] (the GNN phis, flat or dense batches) or along the attention
+batch (the transformer phi).
 
 `SignNet` (the Alchemy and GINE-ZINC encoder) runs over all of a batch's
 eigenvector slots with the batch's `eig_mask`: `GNN3d`, a stack of masked
@@ -21,11 +23,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..graph.batch import from_dense_nodes, to_dense_nodes
 from ..nn.dropout import Dropout
 from ..nn.encoders import DiscreteEncoder
+from ..nn.init import Linear
 from ..nn.mlp import MLP, MaskedMLP
 from ..nn.norm import MaskedBatchNorm
-from ..nn.set_transformer import SetTransformer
+from ..nn.set_transformer import SetTransformer, TransformerEncoderLayer
 from .conv import (GATConv, GINConv, MaskedGINConv, MaskedGINEConv,
                    node_mask_like)
 
@@ -233,7 +237,55 @@ class MaskedGINDeepSigns(nn.Module):
         x = sign_unfuse(self.enc(gb, x2))               # N K phi_out
         K = x.shape[-2]
         slots = torch.arange(K, device=x.device)
-        kmask = (slots < gb.nodes_per_graph()[:, None]).to(x.dtype)
+        # nodes_per_graph is [N] flat, [G, M] dense
+        kmask = (slots < gb.nodes_per_graph()[..., None]).to(x.dtype)
         x = (x * kmask[..., None]).sum(dim=-2)          # N phi_out
         # rho's BN runs over every row, padding included, as in flax
         return self.rho(x)                              # N K
+
+
+class TransformerDeepSigns(nn.Module):
+    """phi: a set-transformer encoder over each graph's nodes, per
+    eigenvector; rho: flatten and a 4-layer MLP -> [N, k].
+
+    In the dense per-graph layout [G, n_max, ...] (graph.batch.
+    to_dense_nodes): a shared `embed` of +v and of -v, the k eigenvector
+    channels and the two signs folded into the attention batch
+    [(2 k G), n_max, hidden], `num_layers` encoder layers `sab_i` of
+    `num_heads` heads (attention dropout 0.1 in training, drawn from
+    `rng`), the two signs' halves summed, back to the flat [N, k, hidden]
+    and `rho` over [N, k * hidden].  A graph's padding slots, and the
+    padding graph's all-masked rows, come out as zeros."""
+
+    def __init__(self, hidden: int, num_layers: int, k: int, n_max: int,
+                 num_heads: int = 2, use_bn: bool = False,
+                 dropout: float = 0.0, rng=None):
+        super().__init__()
+        self.hidden, self.num_layers, self.k, self.n_max = (
+            hidden, num_layers, k, n_max)
+        self.embed = Linear(1, hidden)
+        for i in range(num_layers):
+            self.add_module(f"sab_{i}", TransformerEncoderLayer(
+                hidden, n_head=num_heads, rng=rng))
+        self.rho = MLP(k * hidden, hidden, k, num_layers=4, use_bn=use_bn,
+                       dropout=dropout, rng=rng)
+
+    def forward(self, gb, eigvecs):
+        n, k, H = eigvecs.shape[0], self.k, self.hidden
+        dense_p, mask = to_dense_nodes(gb, self.embed(eigvecs[..., None]),
+                                       self.n_max)            # G M K H
+        dense_n, _ = to_dense_nodes(gb, self.embed(-eigvecs[..., None]),
+                                    self.n_max)
+        G, M = dense_p.shape[:2]
+
+        def fold(d):   # G M K H -> (K G) M H
+            return d.movedim(2, 0).reshape(k * G, M, H)
+
+        h = torch.cat([fold(dense_p), fold(dense_n)], dim=0)
+        m = mask[None].expand(k, G, M).reshape(k * G, M)
+        m = torch.cat([m, m], dim=0)
+        for i in range(self.num_layers):
+            h = getattr(self, f"sab_{i}")(h, mask=m)
+        h = (h[:k * G] + h[k * G:]).reshape(k, G, M, H).movedim(0, 2)
+        flat = from_dense_nodes(gb, h).reshape(n, -1)         # N (K H)
+        return self.rho(flat)

@@ -5,7 +5,7 @@ Port of signnet_basisnet_tpu/models/zinc_models.py:28-64 (`lapeig_loss`,
 `normalize_p`), :67-166 (`_Base`: `sign_inv_module`, `embed_inputs`,
 `readout_head`), :169-203 (`GatedGCNNet`, its LSPE branch included),
 :206-231 (`GINNet`, likewise), :234-250 (`GATNet`), :253-296 (`PNANet`)
-and :298-316 (`TransformerNet`, sparse path).  Signature: ``model(gb, pos_enc) -> [G]`` scores; GIN and GatedGCN also
+and :298-316 (`TransformerNet`, with `full_graph`).  Signature: ``model(gb, pos_enc) -> [G]`` scores; GIN and GatedGCN also
 return the LSPE positional channel p, as ``(scores, p)``, with
 ``return_p=True`` (p is None off the LSPE path).  PE: `pe_init` in {none, lap_pe, rand_walk};
 with `rand_walk`, or `use_lspe` on GIN and GatedGCN, the embedded PE p
@@ -23,6 +23,17 @@ Dropout (`dropout`, `in_feat_dropout`) is applied where the JAX nets apply
 it, the SignNet phi and rho included, drawing from the model's
 `dropout_rng`, a generator seeded from `seed` (nn/dropout.py).
 
+With `remat` each conv layer of GatedGCN, GIN, PNA and the Transformer
+(not GAT's, not the SignNet phi's) runs under `nn.remat.checkpoint` in a
+train step, as the JAX `maybe_remat` wraps them in `nn.remat`: its
+activations are recomputed in the backward pass.  The parameter and
+buffer names do not change, so a checkpoint loads either way.
+
+GIN takes a dense batch (`graph.dense.DenseGraphBatch`) as the JAX net
+does: `embed_inputs` embeds [G, M] atom codes and the GIN layers, the
+SignNet phi and the readout take their dense branches (`bench --mode
+dense`).
+
 `gnn_model` builds the five ZINC nets: GatedGCN, GIN, GAT, PNA and
 Transformer.
 """
@@ -34,12 +45,14 @@ from torch import nn
 from ..nn.dropout import Dropout, DropoutRNG
 from ..nn.init import Embedding, Linear, init_parameters
 from ..nn.mlp import MLP, MLPReadout
+from ..nn.remat import checkpoint
 from ..nn.set2set import GRUStep
 from ..graph import segment as seg
+from ..graph.dense import DenseGraphBatch
 from .conv import (GATConv, GatedGCNLayer, GatedGCNLSPELayer, GINConv,
                    GraphTransformerLayer, PNALayer, PNANoTowersLayer,
                    pool_any)
-from .signnet import GINDeepSigns, MaskedGINDeepSigns
+from .signnet import GINDeepSigns, MaskedGINDeepSigns, TransformerDeepSigns
 
 # the JAX fit's eval key is PRNGKey(seed + 10007)
 EVAL_FLIP_SEED_OFFSET = 10007
@@ -93,13 +106,9 @@ class ZincNet(nn.Module):
                  pe_aggregate: str = "add", use_lspe: bool = False,
                  max_nodes: int = 40, remat: bool = False, seed: int = 0):
         super().__init__()
-        # max_nodes sizes the transformer phi only
-        del max_nodes
         if pe_init not in ("none", "lap_pe", "rand_walk"):
             raise ValueError(f"unknown pe_init {pe_init!r}")
-        if remat:
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP.md queue 1 item 16)")
+        self.remat = remat
         self.readout = readout
         self.pe_init = pe_init
         self.lap_method = lap_method
@@ -116,9 +125,10 @@ class ZincNet(nn.Module):
         self.embedding_h = Embedding(num_atom_type, hidden_dim)
         if pe_init in ("lap_pe", "rand_walk"):
             if pe_init == "lap_pe" and lap_method == "sign_inv":
+                # max_nodes sizes the transformer phi's dense layout
                 self.sign_inv_net = sign_inv_module(
                     sign_inv_net, hidden_dim, phi_out_dim, sign_inv_layers,
-                    pos_enc_dim, dropout, self.dropout_rng)
+                    pos_enc_dim, dropout, self.dropout_rng, max_nodes)
             self.embedding_p = Linear(pos_enc_dim, hidden_dim)
             if (pe_init == "lap_pe" and not use_lspe
                     and pe_aggregate == "concat"):
@@ -134,14 +144,28 @@ class ZincNet(nn.Module):
         return self.pe_init != "none" and (self.use_lspe
                                            or self.pe_init == "rand_walk")
 
+    def run_layer(self, i: int, *args):
+        """layer_i(*args), under `nn.remat.checkpoint` with `remat` where
+        autograd records (an eval step runs it plainly)."""
+        layer = getattr(self, f"layer_{i}")
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args)
+        return layer(*args)
+
     def embed_inputs(self, gb, pos_enc):
         """(h [N, hidden], p, e [E, hidden]): the atom embedding, merged
         with the embedded PE under lap_pe without LSPE (p is then None),
         else beside it as p [N, hidden]; and the bond embedding (a Linear
-        of ones without edge features)."""
+        of ones without edge features).  On a dense batch h is [G, M,
+        hidden] and e [G, M, M, hidden]."""
+        dense = isinstance(gb, DenseGraphBatch)
         codes = gb.node_feat
-        if codes.dim() == 2:
+        # scalar atom codes: [N] flat, [G, M] dense (a trailing feature
+        # column dropped)
+        if codes.dim() == 2 and not dense:
             codes = codes[:, 0]
+        if codes.dim() == 3:
+            codes = codes[..., 0]
         h = self.in_feat_drop(self.embedding_h(codes))
         p = None
         if self.pe_init in ("lap_pe", "rand_walk") and pos_enc is not None:
@@ -156,6 +180,9 @@ class ZincNet(nn.Module):
             p = None
         if self.edge_feat:
             e = self.embedding_e(gb.edge_feat)
+        elif dense:
+            e = self.embedding_e(torch.ones(gb.adj.shape + (1,),
+                                            device=gb.adj.device))
         else:
             e = self.embedding_e(torch.ones((gb.num_edges, 1),
                                             device=gb.senders.device))
@@ -214,13 +241,12 @@ class GatedGCNNet(ZincNet):
     def forward(self, gb, pos_enc=None, return_p: bool = False):
         h, p, e = self.embed_inputs(gb, pos_enc)
         for i in range(self.n_layers):
-            layer = getattr(self, f"layer_{i}")
-            if isinstance(layer, GatedGCNLSPELayer):
+            if isinstance(getattr(self, f"layer_{i}"), GatedGCNLSPELayer):
                 if p is None:
                     raise ValueError("the LSPE layers need a PE")
-                h, p, e = layer(gb, h, p, e)
+                h, p, e = self.run_layer(i, gb, h, p, e)
             else:
-                h, e = layer(gb, h, e)
+                h, e = self.run_layer(i, gb, h, e)
         h, p = self.merge_p(gb, h, p)
         out = self.readout_head(gb, h)
         return (out, p) if return_p else out
@@ -248,7 +274,7 @@ class GINNet(ZincNet):
     def forward(self, gb, pos_enc=None, return_p: bool = False):
         h, p, _ = self.embed_inputs(gb, pos_enc)
         for i in range(self.n_layers):
-            h = getattr(self, f"layer_{i}")(gb, h)
+            h = self.run_layer(i, gb, h)
         h, p = self.merge_p(gb, h, p)
         out = self.readout_head(gb, h)
         return (out, p) if return_p else out
@@ -327,7 +353,7 @@ class PNANet(ZincNet):
         h, _, e = self.embed_inputs(gb, pos_enc)
         snorm = gb.snorm()
         for i in range(self.n_layers):
-            h_t = getattr(self, f"layer_{i}")(gb, h, e, snorm)
+            h_t = self.run_layer(i, gb, h, e, snorm)
             if self.gru is not None and i != self.n_layers - 1:
                 h_t = self.gru(h, h_t)
             h = h_t
@@ -337,7 +363,9 @@ class PNANet(ZincNet):
 class TransformerNet(ZincNet):
     """Graph transformer layers of width hidden_dim (out_dim unused, as in
     the JAX net), attention modulated by the bond embedding when edge_feat
-    is set."""
+    is set.  With `full_graph` the net takes batches of
+    `data.transforms.make_full_graph` graphs (the `edge_real` extra) and
+    its attention mixes real and fake edges (models/conv.py)."""
 
     def __init__(self, hidden_dim: int = 95, out_dim: int = 95,
                  n_layers: int = 16, batch_norm: bool = True,
@@ -345,10 +373,6 @@ class TransformerNet(ZincNet):
                  full_graph: bool = False, layer_norm: bool = False,
                  seed: int = 0, **base):
         del out_dim
-        if full_graph:
-            raise NotImplementedError(
-                "the full-graph transformer (make_full_graph, edge_real, "
-                "gamma) is not ported yet (ROADMAP.md queue 1 item 10)")
         super().__init__(hidden_dim=hidden_dim, readout_dim=hidden_dim,
                          seed=seed, **base)
         self.n_layers = n_layers
@@ -357,31 +381,35 @@ class TransformerNet(ZincNet):
                 hidden_dim, num_heads, layer_norm=layer_norm,
                 batch_norm=batch_norm, residual=residual,
                 use_edge=self.edge_feat, dropout=self.dropout,
-                rng=self.dropout_rng))
+                rng=self.dropout_rng, full_graph=full_graph))
         init_parameters(self, torch.Generator().manual_seed(seed))
 
     def forward(self, gb, pos_enc=None):
         h, _, e = self.embed_inputs(gb, pos_enc)
         for i in range(self.n_layers):
-            h = getattr(self, f"layer_{i}")(gb, h, e)
+            h = self.run_layer(i, gb, h, e)
         return self.readout_head(gb, h)
 
 
 def sign_inv_module(kind: str, hidden: int, phi_out: int, num_layers: int,
-                    k: int, dropout: float = 0.0, rng=None) -> nn.Module:
-    """sign_inv_net factory: the GIN or GAT phi (`gin`, `gat`) or the
-    masked GIN one (`masked_gin`); `gcn` raises ValueError (models/
-    signnet.py says why).  use_bn=True always, as the reference hardcodes
-    it for every sign_inv variant (without BN the 8-layer sum-aggregation
-    phi produces unbounded activations)."""
+                    k: int, dropout: float = 0.0, rng=None,
+                    max_nodes: int = 40) -> nn.Module:
+    """sign_inv_net factory: the GIN or GAT phi (`gin`, `gat`), the masked
+    GIN one (`masked_gin`) or the set-transformer one (`transformer`:
+    min(num_layers, 4) attention layers of 2 heads over each graph's
+    nodes padded to `max_nodes`, no BN, no dropout but the attention's,
+    as the JAX factory builds it); `gcn` raises ValueError (models/
+    signnet.py says why).  Otherwise use_bn=True always, as the reference
+    hardcodes it for every sign_inv variant (without BN the 8-layer
+    sum-aggregation phi produces unbounded activations)."""
+    if kind == "transformer":
+        return TransformerDeepSigns(hidden=hidden,
+                                    num_layers=min(num_layers, 4), k=k,
+                                    n_max=max_nodes, rng=rng)
     kw = dict(hidden=hidden, phi_out=phi_out, num_layers=num_layers, k=k,
               use_bn=True, dropout=dropout, rng=rng)
     if kind == "masked_gin":
         return MaskedGINDeepSigns(**kw)
-    if kind == "transformer":
-        raise NotImplementedError(
-            "sign_inv_net 'transformer' is not ported yet (ROADMAP.md queue "
-            "1 item 16)")
     if kind in ("gin", "gat", "gcn"):
         return GINDeepSigns(kind=kind, **kw)
     raise ValueError(f"unknown sign_inv_net {kind!r}")

@@ -3,8 +3,10 @@
 Port of signnet_basisnet_tpu/nn/mlp.py: `MLP` (lin -> relu -> [BN] per hidden
 layer, plain final linear; 2-D [N, D] and 3-D [N, K, D] input, 3-D BN
 normalising over N*K rows), `ElementsMLP` and `MaskedMLP` (lin -> BN ->
-relu, the Alchemy/GINE style) and `MLPReadout` (the halving-width readout
-head).  Submodule names follow the flax names (`lin_i`, `bn_i`, `fc_i`).
+relu, the Alchemy/GINE style), `MLPReadout` (the halving-width readout
+head) and `MLPReadout2` (the same with dropout before every hidden Linear,
+drawn from the model's `DropoutRNG`; no model path of either package uses
+it).  Submodule names follow the flax names (`lin_i`, `bn_i`, `fc_i`).
 Dropout follows each hidden layer's BN, as in the JAX MLP.  The JAX MLP's
 residual and other activations are not on the ported path.  With
 `bn_track_running_stats=False` (the LearningFilters MLPs) its BNs use batch
@@ -67,6 +69,18 @@ class MLPReadout(nn.Module):
     def forward(self, x):
         for l in range(self.num_hidden_layers):
             x = torch.relu(getattr(self, f"fc_{l}")(x))
+        return getattr(self, f"fc_{self.num_hidden_layers}")(x)
+
+
+class MLPReadout2(MLPReadout):
+    def __init__(self, in_features: int, out: int, num_hidden_layers: int = 2,
+                 dropout: float = 0.0, rng: Optional[DropoutRNG] = None):
+        super().__init__(in_features, out, num_hidden_layers)
+        self.drop = Dropout(dropout, rng)
+
+    def forward(self, x):
+        for l in range(self.num_hidden_layers):
+            x = torch.relu(getattr(self, f"fc_{l}")(self.drop(x)))
         return getattr(self, f"fc_{self.num_hidden_layers}")(x)
 
 

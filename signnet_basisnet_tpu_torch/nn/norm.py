@@ -8,7 +8,9 @@ rows are zero on output.  Running statistics stay float32 whatever the input
 type (the JAX package's bf16 mode keeps batch_stats f32).  With
 `track_running_stats=False` (the LearningFilters MLP and DeepSets) batch
 statistics are used in eval mode too and the running buffers, still
-registered at mean 0 and var 1 as flax creates them, never change.
+registered at mean 0 and var 1 as flax creates them, never change.  While a
+rematerialised layer's forward runs again in the backward pass
+(nn/remat.py) the running statistics stay as the first run left them.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .remat import recomputing
 
 MOMENTUM = 0.1
 EPS = 1e-5
@@ -47,7 +51,8 @@ class MaskedBatchNorm(nn.Module):
                 cnt = torch.clamp(m.sum(), min=1.0)
                 mean = (x2 * m).sum(dim=0) / cnt
                 var = (((x2 - mean) ** 2) * m).sum(dim=0) / cnt
-            if self.training and self.track_running_stats:
+            if (self.training and self.track_running_stats
+                    and not recomputing()):
                 with torch.no_grad():
                     unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                     self.running_mean.copy_(

@@ -41,10 +41,15 @@ batch` refuses them; `train.matmul_precision` maps to torch's float32
 matmul precision for the run (`MATMUL_PRECISION`).  The steps stay eager
 (a captured step is training/train.py: `capture_train_step`).
 
-Not ported yet, and refused: train.mp > 1, the transformer SignNet phi,
-remat and the full-graph transformer (ROADMAP.md queue 1).  The gcn phi
-raises ValueError in both packages: the JAX one cannot broadcast its
-degree column over the [N, 2k, D] stack.
+`model.sign_inv_net transformer` takes the set-transformer phi (over each
+graph's nodes padded to `model.max_nodes`); `model.remat true` recomputes
+each conv layer's activations in the backward pass (nn/remat.py).
+
+Refused: train.mp > 1 and microbatches (not ported yet, ROADMAP.md queue
+1), and `model.full_graph true`, which the JAX train_zinc cannot run
+either (it never builds the full graphs; `_refuse_unported` says why).
+The gcn phi raises ValueError in both packages: the JAX one cannot
+broadcast its degree column over the [N, 2k, D] stack.
 """
 from __future__ import annotations
 
@@ -117,6 +122,17 @@ def _refuse_unported(cfg):
     if cfg.train.mp > 1 or cfg.train.num_microbatches > 1:
         raise NotImplementedError(
             "parallel training is not ported yet (ROADMAP.md queue 1 item 20)")
+    if cfg.model.model == "Transformer" and cfg.model.full_graph:
+        # TransformerNet(full_graph=True) needs make_full_graph batches
+        raise NotImplementedError(
+            "model.full_graph: the JAX train_zinc passes full_graph to "
+            "the net but never calls data/transforms.py make_full_graph, "
+            "so its full-graph attention raises KeyError: 'edge_real' "
+            "(JAX train_zinc.py:107-108, models/conv.py:749); this "
+            "train_zinc adds no transform the reference lacks.  The "
+            "full-graph Transformer runs at module level: TransformerNet(full_graph="
+            "True) on batch_np batches of data.transforms.make_full_graph "
+            "graphs")
     if cfg.train.eval_bn_mode == "batch" and (
             cfg.model.dropout > 0 or cfg.model.in_feat_dropout > 0):
         # batch-statistics eval runs the forward in training mode, which

@@ -215,8 +215,16 @@ def capture_train_step(model: torch.nn.Module, predict: Callable,
     model's generators are registered with the graph).  The kernel wrappers'
     launch counters count the capture once and no replay.  The metrics
     returned are copies of the graph's own output tensors, which the next
-    replay overwrites.  `step.model` is the model it trains.
+    replay overwrites.  `step.model` is the model it trains.  A model
+    with `remat` and dropout is refused (NotImplementedError).
     """
+    if getattr(model, "remat", False) and any(
+            isinstance(m, Dropout) and m.rate for m in model.modules()):
+        raise NotImplementedError(
+            "capture_train_step of a remat'd model with dropout: the "
+            "recompute must read and set the dropout generator's state "
+            "(nn/remat.py), which a CUDA graph capture cannot do; run the "
+            "eager step (build_steps)")
     dev = batch.senders.device
     if dev.type != "cuda":
         raise RuntimeError("capture_train_step needs a batch on the card")

@@ -15,6 +15,8 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ..graph.dense import DenseGraphBatch
+
 
 class Throughput:
     """Accumulates (edges, nodes, graphs, seconds) across steps: the real
@@ -29,8 +31,10 @@ class Throughput:
 
     def add(self, gb, seconds: float) -> None:
         """Count one step over batch `gb` that took `seconds` (reads the
-        masks on the host: a sync if they lie on the card)."""
-        self.edges += float(gb.edge_mask.sum())
+        masks on the host: a sync if they lie on the card).  A dense batch's
+        edges are its adjacency's ones."""
+        edges = gb.adj if isinstance(gb, DenseGraphBatch) else gb.edge_mask
+        self.edges += float(edges.sum())
         self.nodes += float(gb.node_mask.sum())
         self.graphs += float(gb.graph_mask.sum())
         self.seconds += seconds

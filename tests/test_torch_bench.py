@@ -114,8 +114,10 @@ def test_bench_eager_step_runs_on_the_cpu(small_batches, sums):
     assert tseg.get_sum_backend() == "xla"
 
 
-def test_bench_dense_mode_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 19"):
+def test_bench_dense_mode_refuses_to_run_without_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--mode", "dense"])
 
 

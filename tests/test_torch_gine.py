@@ -18,7 +18,6 @@ train step as tests/test_torch_alchemy.py holds it; a resumed run equals
 an uninterrupted one within 1e-6.
 """
 import json
-import types
 
 import jax
 import numpy as np
@@ -27,8 +26,6 @@ import torch
 
 from signnet_basisnet_tpu import models as JM
 from signnet_basisnet_tpu.data import zinc as jzinc
-from signnet_basisnet_tpu.graph.dense import (dense_batch_np,
-                                              dense_from_arrays)
 from signnet_basisnet_tpu.nn import mlp as jmlp
 from signnet_basisnet_tpu.spectral import projectors as jproj
 from signnet_basisnet_tpu.train_zinc_gine import \
@@ -159,24 +156,6 @@ def test_masked_gine_conv_refuses_other_width_mismatches():
         JM.MaskedGINEConv(8).init({"params": jax.random.PRNGKey(0)},
                                   jbatch(arrays), jx(np.zeros((n, k, 4))),
                                   jx(np.zeros((len(arrays["senders"]), 8))))
-
-
-def test_dense_batches_are_refused_naming_item_19():
-    """A dense batch (the JAX DenseGraphBatch) reaches the convs' dense
-    branches in JAX; the port refuses it, and anything but a flat
-    GraphBatch, naming ROADMAP item 19."""
-    dense = dense_from_arrays(dense_batch_np(zinc_graphs(3, seed=4), 4, 24))
-    fake = types.SimpleNamespace(adj=torch.zeros(1, 2, 2), extras={})
-    x = torch.zeros(4, 8)
-    for gb in (dense, fake):
-        for call in (
-                lambda: tconv.GINEConv(torch.nn.Identity())(gb, x, x),
-                lambda: tconv.MaskedGINConv(8, 8)(gb, x),
-                lambda: tconv.MaskedGINEConv(8, 8)(gb, x, x),
-                lambda: tconv.GINConv(torch.nn.Identity(), True)(gb, x),
-                lambda: tconv.SimplifiedPNAConv(8, 8)(gb, x)):
-            with pytest.raises(NotImplementedError, match="item 19"):
-                call()
 
 
 def test_simplified_pna_conv_matches_jax():

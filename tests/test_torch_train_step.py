@@ -259,8 +259,9 @@ def test_train_zinc_runs_the_flagship_with_the_pe_options_on_cpu(tmp_path,
 
 
 @pytest.mark.parametrize("override,match", [
-    (["train.mp", "2"], "item 20"), (["model.remat", "true"], "item 16"),
-    (["model.model", "Transformer", "model.full_graph", "true"], "item 10")])
+    (["train.mp", "2"], "item 20"),
+    (["model.model", "Transformer", "model.full_graph", "true"],
+     "never calls data/transforms.py make_full_graph")])
 def test_train_zinc_refuses_unported_options(override, match):
     cfg = load_config("configs/gin_zinc_signinv_gin.json", override + [
         "data.synth_train", "8", "data.synth_eval", "4",
