@@ -128,3 +128,12 @@ def iterate_graphbatches(graphs, num_nodes, num_edges, num_graphs,
         if item is None:
             break
         yield item if device is None else item.to(device, non_blocking=pin)
+
+
+def stack_microbatches(batches: Sequence[Dict[str, np.ndarray]]):
+    """Stack D padded batches along a new leading axis for data parallelism
+    (rank r of a dp group takes its microbatches from that axis)."""
+    out = {}
+    for key in batches[0]:
+        out[key] = np.stack([b[key] for b in batches], axis=0)
+    return out

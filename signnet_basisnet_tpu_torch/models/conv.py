@@ -27,6 +27,14 @@ The full-graph Transformer (`full_graph=True`, on batches of
 `edge_real` flag of each edge and reweights the fake edges by a learnt
 gamma, in plain torch: it never takes the K2/K3 path, as the JAX layer
 never takes its fused kernel there.
+
+On a model-parallel shard (`mp_send_idx` in extras, parallel/mp_halo.py)
+every layer takes the JAX package's halo route: `neighbor_sum` sums the
+local edges and the exchanged halo rows, the gather-based layers read
+their source rows through `src_features` ([x ‖ halo]), the GatedGCN layer
+applies B and D and the Transformer K and V (and K_2) to the exchanged
+rows, and `pool_any` sums its per-graph partials over the group.  A shard
+carries no tile ranges, so no kernel runs there, as in JAX.
 """
 from __future__ import annotations
 
@@ -59,6 +67,10 @@ def neighbor_sum(x, gb):
     """
     if isinstance(gb, DenseGraphBatch):
         return dense_neighbor_sum(gb.adj, x)
+    if "mp_send_idx" in gb.extras:
+        # a model-parallel shard: local sum + the halo exchange's remote one
+        from ..parallel.mp_halo import mp_neighbor_sum
+        return mp_neighbor_sum(x, gb)
     backend = seg.get_agg_backend()
     if backend == "tile_dense" and "tile_starts" in gb.extras:
         bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
@@ -76,15 +88,6 @@ def neighbor_sum(x, gb):
                                edge_mask=gb.edge_mask)
 
 
-def refuse_halo(gb):
-    """The model-parallel halo exchange (`mp_send_idx` in extras) is not
-    ported: a layer that gathers by sender refuses such a batch."""
-    if "mp_send_idx" in gb.extras:
-        raise NotImplementedError(
-            "the model-parallel halo exchange is not ported yet "
-            "(ROADMAP.md queue 1 item 20)")
-
-
 def refuse_dense(gb, layer: str):
     """A layer with no dense branch in the JAX package refuses a dense
     batch, on which the JAX layer fails reading `gb.senders`."""
@@ -97,8 +100,12 @@ def refuse_dense(gb, layer: str):
 
 def src_features(x, gb):
     """Rows of ``x`` addressable by ``gb.senders``: on a plain batch ``x``
-    itself (the model-parallel halo rows are refused, item 20)."""
-    refuse_halo(gb)
+    itself; on a model-parallel shard (``mp_send_idx`` in extras) ``[x ‖
+    halo rows]``, since senders >= shard_n index the halo block the
+    exchange brings from the other ranks (parallel/mp_halo.py)."""
+    if "mp_send_idx" in gb.extras:
+        from ..parallel.mp_halo import mp_exchange
+        return torch.cat([x, mp_exchange(x, gb.extras["mp_send_idx"])])
     return x
 
 
@@ -113,6 +120,10 @@ def pool_any(gb, x, reduce="sum"):
     ...]."""
     if isinstance(gb, DenseGraphBatch):
         return dense_pool(x, gb.node_mask, reduce=reduce)
+    if "mp_send_idx" in gb.extras:
+        # a model-parallel shard: graphs may straddle shards
+        from ..parallel.mp_halo import mp_pool_nodes
+        return mp_pool_nodes(x, gb, reduce=reduce)
     return seg.pool_nodes(x, gb.graph_id, gb.num_graphs,
                           node_mask=gb.node_mask, reduce=reduce)
 
@@ -247,13 +258,12 @@ class GCNConv(nn.Module):
 
     def forward(self, gb, x):
         refuse_dense(gb, "GCNConv")
-        refuse_halo(gb)
         deg = gb.in_degrees()
         if self.add_self_loops:
             deg = deg + gb.node_mask
         d = torch.where(deg > 0, deg ** -0.5, torch.zeros_like(deg))[:, None]
         h = self.weight(x)
-        msg = (h * d).index_select(0, gb.senders.long())
+        msg = src_features(h * d, gb).index_select(0, gb.senders.long())
         agg = seg.aggregate_edges(msg, gb.receivers, gb.num_nodes,
                                   edge_mask=gb.edge_mask)
         if self.add_self_loops:
@@ -302,15 +312,18 @@ class GATConv(nn.Module):
 
     def forward(self, gb, x):
         refuse_dense(gb, "GATConv")
-        refuse_halo(gb)
         H, Fh, n = self.num_heads, self.features, gb.num_nodes
         src, dst = gb.senders.long(), gb.receivers.long()
         h = self.weight(x)
         h = h.reshape(h.shape[:-1] + (H, Fh))
         el = (h * self.attn_src).sum(-1)                # N [K] H
         er = (h * self.attn_dst).sum(-1)
-        h_src = h.index_select(0, src)
-        scores = F.leaky_relu(el.index_select(0, src) + er.index_select(0, dst),
+        # on an mp shard the source rows include the halo block
+        h_all = src_features(h, gb)
+        el_src = el if h_all is h else (h_all * self.attn_src).sum(-1)
+        h_src = h_all.index_select(0, src)
+        scores = F.leaky_relu(el_src.index_select(0, src)
+                              + er.index_select(0, dst),
                               self.negative_slope)      # E [K] H
         emask = gb.edge_mask.reshape((-1,) + (1,) * (scores.dim() - 1))
         if self.add_self_loops:
@@ -368,10 +381,16 @@ class GatedGCNLayer(nn.Module):
 
     def forward(self, gb, h, e, snorm_n=None):
         refuse_dense(gb, "GatedGCNLayer")
-        refuse_halo(gb)
         h_in, e_in = h, e
         Ah, Bh, Dh, Eh = (getattr(self, m)(h) for m in "ABDE")
         Ce = self.C(e)
+        if "mp_send_idx" in gb.extras:
+            # a model-parallel shard: one exchange of h, then B and D of the
+            # received rows appended, so that senders >= shard_n read them
+            from ..parallel.mp_halo import mp_exchange
+            halo_h = mp_exchange(h, gb.extras["mp_send_idx"])
+            Bh = torch.cat([Bh, self.B(halo_h)])
+            Dh = torch.cat([Dh, self.D(halo_h)])
         if (seg.get_agg_backend() == "pallas_tile"
                 and "tile_starts" in gb.extras):
             bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
@@ -429,13 +448,14 @@ class GatedGCNLSPELayer(nn.Module):
 
     def forward(self, gb, h, p, e):
         refuse_dense(gb, "GatedGCNLSPELayer")
-        refuse_halo(gb)
         h_in, p_in, e_in = h, p, e
         hp = torch.cat([h, p], dim=-1)
         src, dst = gb.senders.long(), gb.receivers.long()
         n = gb.num_nodes
-        A2hp, C2p = self.A2(hp), self.C2(p)
-        e_new = self.B1(h)[dst] + self.B2(h)[src] + self.B3(e)
+        A2hp = src_features(self.A2(hp), gb)
+        C2p = src_features(self.C2(p), gb)
+        e_new = (self.B1(h)[dst] + src_features(self.B2(h), gb)[src]
+                 + self.B3(e))
         eta = torch.sigmoid(e_new) * gb.edge_mask[:, None]
         sum_eta = seg.segment_sum(eta, gb.receivers, n) + 1e-6
         h_new = self.A1(hp) + seg.segment_sum(
@@ -516,7 +536,7 @@ def pna_scale(h, deg, avg_d_log: float, scalers: Sequence[str]):
 
 def _pna_message(gb, h, e, edge_features: bool):
     """[h_src, h_dst(, e)] per edge: the pretrans input."""
-    parts = [h.index_select(0, gb.senders.long()),
+    parts = [src_features(h, gb).index_select(0, gb.senders.long()),
              h.index_select(0, gb.receivers.long())]
     if edge_features:
         parts.append(e)
@@ -593,7 +613,6 @@ class PNALayer(nn.Module):
 
     def forward(self, gb, h, e, snorm_n=None):
         refuse_dense(gb, "PNALayer")
-        refuse_halo(gb)
         w = self.tower_in
         outs = [getattr(self, f"tower_{t}")(
             gb, h[:, t * w:(t + 1) * w] if self.divide_input else h, e,
@@ -639,12 +658,11 @@ class PNANoTowersLayer(nn.Module):
 
     def forward(self, gb, h, e, snorm_n=None):
         refuse_dense(gb, "PNANoTowersLayer")
-        refuse_halo(gb)
         h = self.drop(h)
         if self.edge_features:
             msg = self.pretrans_h(_pna_message(gb, h, e, True))
         else:
-            msg = h.index_select(0, gb.senders.long())
+            msg = src_features(h, gb).index_select(0, gb.senders.long())
         aggs, deg = pna_aggregate(msg, gb, self.aggregators)
         hcat = torch.cat(aggs, dim=-1)
         if len(self.scalers) > 1:
@@ -739,7 +757,7 @@ class GraphTransformerAttention(nn.Module):
         if full_graph:
             self.gamma = nn.Parameter(torch.full((), 0.1))
 
-    def _full_graph(self, gb, h, e, q, k, v):
+    def _full_graph(self, gb, h, e, q, k, v, halo_h):
         H, D = self.num_heads, self.out_dim
         s, r = gb.senders.long(), gb.receivers.long()
         real = gb.extras["edge_real"][:, None, None] > 0
@@ -747,6 +765,8 @@ class GraphTransformerAttention(nn.Module):
         if self.use_edge:
             e1, e2 = (m(e).reshape(-1, H, D) for m in (self.E, self.E_2))
             q2, k2 = (m(h).reshape(-1, H, D) for m in (self.Q_2, self.K_2))
+            if halo_h is not None:
+                k2 = torch.cat([k2, self.K_2(halo_h).reshape(-1, H, D)])
             score = torch.where(real, score * e1,
                                 k2[s] * q2[r] / math.sqrt(D) * e2)
         ex = torch.exp(torch.clamp(score.sum(-1, keepdim=True), -5.0, 5.0))
@@ -762,8 +782,18 @@ class GraphTransformerAttention(nn.Module):
         refuse_dense(gb, "GraphTransformerAttention")
         H, D = self.num_heads, self.out_dim
         q, k, v = (m(h).reshape(-1, H, D) for m in (self.Q, self.K, self.V))
+        halo_h = None
+        if "mp_send_idx" in gb.extras:
+            # a model-parallel shard: one exchange of h, its rows projected
+            # by K and V (and K_2) and appended for the sender gathers; the
+            # softmax needs no collective, as every in-edge of a local node
+            # is local (the halo covers a full graph's fake edges too)
+            from ..parallel.mp_halo import mp_exchange
+            halo_h = mp_exchange(h, gb.extras["mp_send_idx"])
+            k = torch.cat([k, self.K(halo_h).reshape(-1, H, D)])
+            v = torch.cat([v, self.V(halo_h).reshape(-1, H, D)])
         if self.full_graph:
-            return self._full_graph(gb, h, e, q, k, v)
+            return self._full_graph(gb, h, e, q, k, v, halo_h)
         if self.use_edge:
             e1 = self.E(e).reshape(-1, H, D)
         else:

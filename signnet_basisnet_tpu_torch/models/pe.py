@@ -14,7 +14,6 @@ from __future__ import annotations
 import torch
 
 from ..graph import segment as seg
-from .conv import refuse_halo
 
 
 def sign_flip(pos_enc, rng):
@@ -38,12 +37,17 @@ def canonical(gb, pos_enc, exact: bool = False):
 
     `exact=True` (lap_method canonical_ref) keeps the published quirk:
     where both criteria fire the multiplier is -2, not -1 (PARITY.md
-    deviation 1); the default is a pure +-1 sign choice."""
-    refuse_halo(gb)
+    deviation 1); the default is a pure +-1 sign choice.  On a
+    model-parallel shard the per-graph counts and masses are summed over
+    the mp group, as graphs may straddle shards."""
     nm = gb.node_mask[:, None].to(pos_enc.dtype)
 
     def pool(v):
-        return seg.pool_nodes(v, gb.graph_id, gb.num_graphs)
+        part = seg.pool_nodes(v, gb.graph_id, gb.num_graphs)
+        if "mp_send_idx" in gb.extras:
+            from ..parallel.mp_halo import mp_psum
+            part = mp_psum(part)
+        return part
 
     zero = torch.zeros_like(pos_enc)
     nonneg = pos_enc >= 0

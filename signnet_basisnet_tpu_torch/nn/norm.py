@@ -11,6 +11,10 @@ statistics are used in eval mode too and the running buffers, still
 registered at mean 0 and var 1 as flax creates them, never change.  While a
 rematerialised layer's forward runs again in the backward pass
 (nn/remat.py) the running statistics stay as the first run left them.
+On a model-parallel shard (parallel/mp_halo.py: `mp_axis_ctx` set) the
+batch statistics come from the count, sum and sum of squares summed over
+the mp group, with the uncentred variance s2/cnt - mean^2, as the JAX
+layer computes them there.
 """
 from __future__ import annotations
 
@@ -39,8 +43,25 @@ class MaskedBatchNorm(nn.Module):
         d = self.features
         x2 = x.reshape(-1, d)
         m = None if mask is None else mask.reshape(-1, 1).to(x2.dtype)
+        # a model-parallel shard: the statistics span every shard of the
+        # node (or edge) axis, from the moment sums over the mp group, with
+        # the uncentred variance (JAX nn/norm.py:48-70)
+        from ..parallel.mp_halo import get_mp_axis, mp_psum
+        mp_axis = get_mp_axis()
         if self.training or not self.track_running_stats:
-            if m is None:
+            if mp_axis is not None:
+                if m is None:
+                    cnt = x2.new_full((1,), float(x2.shape[0]))
+                    s1, s2 = x2.sum(dim=0), (x2 ** 2).sum(dim=0)
+                else:
+                    cnt = m.sum().reshape(1)
+                    s1, s2 = (x2 * m).sum(dim=0), ((x2 ** 2) * m).sum(dim=0)
+                cnt, s1, s2 = mp_psum(torch.cat([cnt, s1, s2]),
+                                      mp_axis).split([1, d, d])
+                cnt = torch.clamp(cnt[0], min=1.0)
+                mean = s1 / cnt
+                var = torch.clamp(s2 / cnt - mean ** 2, min=0.0)
+            elif m is None:
                 # filled on the device: a host tensor copied in would be a
                 # copy from pageable memory, which a CUDA graph capture
                 # refuses (SignNet's rho reaches this branch)

@@ -45,11 +45,25 @@ matmul precision for the run (`MATMUL_PRECISION`).  The steps stay eager
 graph's nodes padded to `model.max_nodes`); `model.remat true` recomputes
 each conv layer's activations in the backward pass (nn/remat.py).
 
-Refused: train.mp > 1 and microbatches (not ported yet, ROADMAP.md queue
-1), and `model.full_graph true`, which the JAX train_zinc cannot run
-either (it never builds the full graphs; `_refuse_unported` says why).
-The gcn phi raises ValueError in both packages: the JAX one cannot
-broadcast its degree column over the [N, 2k, D] stack.
+`train.mp N` (N > 1) trains model-parallel as the JAX train_zinc does
+(parallel/mp_halo.py: nodes and edges split into N shards, one halo
+exchange a layer, parameters replicated), one process a shard:
+
+    torchrun --nproc_per_node N -m signnet_basisnet_tpu_torch.train_zinc \
+        --config configs/gin_zinc_signinv_gin.json train.mp N
+
+Every rank packs and partitions the same batches (edge and halo budgets
+from every split, with 1.2x edge and 2x halo headroom) and trains on its
+shard; rank 0 logs and writes the results.  A shard carries no tile
+ranges, so no kernel runs there, as in JAX; `model.use_lapeig_loss` is
+refused there, as in JAX.
+
+Refused: `train.num_microbatches` > 1, which the JAX train_zinc never
+reads (data parallelism runs through parallel.build_dp_steps and
+bench_scaling), and `model.full_graph true`, which the JAX train_zinc
+cannot run either (it never builds the full graphs; `_refuse_unported`
+says why).  The gcn phi raises ValueError in both packages: the JAX one
+cannot broadcast its degree column over the [N, 2k, D] stack.
 """
 from __future__ import annotations
 
@@ -60,6 +74,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from .data import (add_full_evd, add_lap_pe, add_rwpe, avg_degree_stats,
                    choose_budgets, iterate_graphbatches, load_zinc,
@@ -67,6 +82,8 @@ from .data import (add_full_evd, add_lap_pe, add_rwpe, avg_degree_stats,
 from .graph import from_arrays
 from .graph import segment as seg
 from .models import gnn_model
+from .parallel import (build_mp_steps, device_arrays_mp, init_distributed,
+                       mp_budgets, partition_batch_mp, shard_arrays_mp)
 from .training import (Checkpointer, adam, build_steps, count_params, fit,
                        load_config, make_lapeig_loss_fn, make_zinc_predict)
 from .utils import RunLogger, card_or_cpu
@@ -119,9 +136,14 @@ def prepare_data(cfg):
 
 
 def _refuse_unported(cfg):
-    if cfg.train.mp > 1 or cfg.train.num_microbatches > 1:
+    if cfg.train.num_microbatches > 1:
         raise NotImplementedError(
-            "parallel training is not ported yet (ROADMAP.md queue 1 item 20)")
+            "train.num_microbatches: the JAX train_zinc never reads it "
+            "(training/config.py:30 declares it and nothing else mentions "
+            "it), so it trains one batch a step whatever the value; this "
+            "train_zinc adds no path the reference lacks.  Data "
+            "parallelism with microbatches runs through "
+            "parallel.build_dp_steps (and bench_scaling)")
     if cfg.model.model == "Transformer" and cfg.model.full_graph:
         # TransformerNet(full_graph=True) needs make_full_graph batches
         raise NotImplementedError(
@@ -180,8 +202,27 @@ def run(cfg, device: str = "cuda", log=print):
     says otherwise) while the run lasts."""
     _refuse_unported(cfg)
     device = card_or_cpu(device)
+    if cfg.train.mp > 1:
+        device = _join_mp_world(cfg.train.mp, device)
+        if dist.get_rank() != 0:
+            log = lambda msg: None
     with matmul_precision(cfg.train.matmul_precision):
         return _run(cfg, device, log)
+
+
+def _join_mp_world(mp: int, device: torch.device) -> torch.device:
+    """This process's rank device in the world of `mp` shards: the
+    process group already joined, else torchrun's."""
+    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            f"train.mp {mp} runs one process a shard: torchrun "
+            f"--nproc_per_node {mp} -m signnet_basisnet_tpu_torch.train_zinc "
+            f"--config ... train.mp {mp}")
+    dev = init_distributed(device.type)
+    if dist.get_world_size() != mp:
+        raise ValueError(f"train.mp {mp} needs a world of {mp} ranks, "
+                         f"not {dist.get_world_size()}")
+    return dev
 
 
 def _run(cfg, device, log):
@@ -199,16 +240,15 @@ def _run(cfg, device, log):
     # one K for every batch, full-EVD mode included: pos_enc_dim is the
     # dataset's largest node count there (37 for ZINC)
     k = cfg.model.pos_enc_dim
-    make_batches = lambda graphs: [
-        from_arrays(a).to(device) for a in pack_batches(
-            graphs, nb, eb, gb_cnt, shuffle=False, seed=0, k=k, tile=tile)]
-    val_batches = make_batches(splits["val"])
-    test_batches = make_batches(splits["test"])
+    make_arrays = lambda graphs, shuffle, seed: pack_batches(
+        graphs, nb, eb, gb_cnt, shuffle=shuffle, seed=seed, k=k, tile=tile)
     log(f"batches: {nb} nodes, {eb} edges, {gb_cnt} graph slots"
         + (f", tiles of {tile}" if tile else ""))
 
     m = cfg.model
     use_lapeig = m.use_lapeig_loss and uses_lspe(m)
+    if cfg.train.mp > 1 and use_lapeig:
+        raise ValueError("train.mp > 1 does not support use_lapeig_loss")
     model = gnn_model(m.model, **net_params(cfg, splits["train"])).to(device)
     log(f"model: {m.model} params={count_params(model)} device={device}")
 
@@ -221,14 +261,41 @@ def _run(cfg, device, log):
     if use_lapeig:
         loss["loss_fn"] = make_lapeig_loss_fn(m.alpha_loss, m.lambda_loss,
                                               m.pos_enc_dim)
-    train_step, eval_step = build_steps(model, predict, optimizer,
-                                        eval_bn_mode=cfg.train.eval_bn_mode,
-                                        **loss)
-    # a background thread packs (and pins) the next batches while the
-    # device computes; each is copied to the device without blocking
-    train_fn = lambda ep: iterate_graphbatches(
-        splits["train"], nb, eb, gb_cnt, shuffle=True,
-        seed=cfg.train.seed + ep, k=k, tile=tile, prefetch=4, device=device)
+    if cfg.train.mp > 1:
+        # model parallel: every rank partitions the same batches and
+        # keeps its shard; the budgets cover every split, with headroom
+        # for the shuffled epochs and for shifted shard boundaries
+        mp, rank = cfg.train.mp, dist.get_rank()
+        probe = (make_arrays(splits["val"], False, 0)
+                 + make_arrays(splits["test"], False, 0)
+                 + make_arrays(splits["train"], True, cfg.train.seed))
+        e_sh, H = mp_budgets(probe, mp)
+        e_sh = -(-int(e_sh * 1.2) // 8) * 8
+        H = -(-int(H * 2) // 8) * 8
+        log(f"mp={mp}: edge shard {e_sh}, halo {H} rows/pair "
+            f"(vs {nb} nodes — boundary-only exchange)")
+        part = lambda arrays: shard_arrays_mp(device_arrays_mp(
+            partition_batch_mp(arrays, mp, e_shard=e_sh, halo=H)), rank,
+            device)
+        val_batches = [part(a) for a in make_arrays(splits["val"], False, 0)]
+        test_batches = [part(a)
+                        for a in make_arrays(splits["test"], False, 0)]
+        train_step, eval_step = build_mp_steps(model, predict, optimizer)
+        train_fn = lambda ep: [part(a) for a in make_arrays(
+            splits["train"], True, cfg.train.seed + ep)]
+    else:
+        val_batches, test_batches = (
+            [from_arrays(a).to(device) for a in make_arrays(g, False, 0)]
+            for g in (splits["val"], splits["test"]))
+        train_step, eval_step = build_steps(
+            model, predict, optimizer, eval_bn_mode=cfg.train.eval_bn_mode,
+            **loss)
+        # a background thread packs (and pins) the next batches while the
+        # device computes; each is copied to the device without blocking
+        train_fn = lambda ep: iterate_graphbatches(
+            splits["train"], nb, eb, gb_cnt, shuffle=True,
+            seed=cfg.train.seed + ep, k=k, tile=tile, prefetch=4,
+            device=device)
     ckpt = (Checkpointer(cfg.train.checkpoint_dir, cfg.train.keep_checkpoints)
             if cfg.train.checkpoint_dir else None)
 
@@ -250,7 +317,7 @@ def _run(cfg, device, log):
     log(f"FINAL_BEST_VAL: test_mae={result.best_val_test_mae:.4f} "
         f"val_mae={result.best_val_mae:.4f}")
 
-    if cfg.out_dir:
+    if cfg.out_dir and (cfg.train.mp == 1 or dist.get_rank() == 0):
         os.makedirs(cfg.out_dir, exist_ok=True)
         with open(os.path.join(cfg.out_dir, f"{cfg.name}_results.json"),
                   "w") as f:

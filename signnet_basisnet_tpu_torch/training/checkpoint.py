@@ -19,6 +19,7 @@ reads the old Adam state: capture after restoring.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 from typing import List, Optional
@@ -55,7 +56,10 @@ class Checkpointer:
         torch.save(state, tmp)
         os.replace(tmp, self.path(step))
         for old in self.steps()[:-self.keep]:
-            os.remove(self.path(old))
+            # model-parallel ranks save the same state; another may have
+            # removed it first
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(self.path(old))
 
     def restore(self, step: Optional[int] = None) -> Optional[dict]:
         step = self.latest_step() if step is None else step

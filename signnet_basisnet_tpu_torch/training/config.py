@@ -8,8 +8,8 @@ JAX package's configs load unchanged:
         --config configs/gin_zinc_signinv_gin.json \
         data.agg_backend pallas_tile train.epochs 1
 
-Fields the port does not run yet (train.mp > 1, the unported nets) are
-kept in the schema and refused by train_zinc.
+`train.num_microbatches`, which the JAX train_zinc never reads, is kept
+in the schema and refused by train_zinc above 1.
 """
 from __future__ import annotations
 

@@ -3,9 +3,10 @@ package on the CPU: the one-hot segment ops (float32, 1e-5: the same sums
 in other orders), the native packer (bit for bit against both packages'
 `batch_np`), the profiling helpers, and the
 `bench_ops` sections themselves at small sizes with `device="cpu"` (the
-kernels' plain versions); and a guard that no module of the port imports
-JAX or the JAX package.
+kernels' plain versions); `bench_scaling` on CPU ranks; and a guard
+that no module of the port imports JAX or the JAX package.
 """
+import json
 import os
 import subprocess
 import sys
@@ -18,11 +19,12 @@ import torch
 from signnet_basisnet_tpu import ops as jops
 from signnet_basisnet_tpu.graph import batch_np as jbatch_np
 
-from signnet_basisnet_tpu_torch import bench_ops
+from signnet_basisnet_tpu_torch import bench_ops, bench_scaling
 from signnet_basisnet_tpu_torch import ops as tops
 from signnet_basisnet_tpu_torch.data import native
 from signnet_basisnet_tpu_torch.graph import batch_np as tbatch_np
 from signnet_basisnet_tpu_torch.graph import segment as tseg
+from signnet_basisnet_tpu_torch.parallel import partition_batch_mp
 from signnet_basisnet_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -282,9 +284,10 @@ def test_bench_ops_main_runs_every_section(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, bench_ops and the Alchemy, GINE-ZINC and
-    LearningFilters slices' modules included, imports with `jax`
-    unimportable, and loads nothing of the JAX package."""
+    """Every module of the port, bench_ops, the Alchemy, GINE-ZINC and
+    LearningFilters slices' modules and the parallel paths (parallel/,
+    bench_scaling) included, imports with `jax` unimportable, and loads
+    nothing of the JAX package."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -299,7 +302,9 @@ for new in ("train_alchemy", "train_zinc_gine", "models.gnn",
             "models.baselines", "nn.encoders", "nn.set_transformer",
             "nn.set2set", "data.alchemy", "spectral.projectors",
             "train_filters", "models.basisnet", "models.spectral_filters",
-            "nn.deepsets", "nn.ign", "data.twodgrid"):
+            "nn.deepsets", "nn.ign", "data.twodgrid", "parallel",
+            "parallel.mesh", "parallel.data_parallel", "parallel.mp_halo",
+            "parallel.edge_partition", "parallel.gspmd", "bench_scaling"):
     assert "signnet_basisnet_tpu_torch." + new in names, (new, names)
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
        m == "signnet_basisnet_tpu" or m.startswith("signnet_basisnet_tpu.")
@@ -312,7 +317,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 58
+    assert int(proc.stdout.split()[-1]) >= 68
 
 
 def test_native_argtypes_match_the_c_signature():
@@ -330,3 +335,22 @@ def test_native_argtypes_match_the_c_signature():
         t = kinds[p.replace("const", "").split()[0].rstrip("*")]
         want.append(ctypes.POINTER(t) if "*" in p else t)
     assert native.PACK_ARGTYPES == want
+
+
+def test_bench_scaling_runs_on_cpu_ranks(capsys):
+    """bench_scaling on the CPU at its full sizes: DP at a world of two
+    gloo ranks, mp 1 (the single-device step) and mp 2, one timed step
+    each; the halo and exchange sizes come from the partition, GSPMD is
+    refused, and the last line is the JSON record."""
+    res = bench_scaling.main(["--device", "cpu", "--worlds", "2",
+                              "--mp", "1,2", "--reps", "1"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last)["device"] == "cpu"
+    assert set(res["dp"]) == {2} and set(res["mp_halo"]) == {1, 2}
+    mp2 = res["mp_halo"][2]
+    parts = partition_batch_mp(bench_scaling.make_global(
+        bench_scaling.MP_GRAPHS), 2)
+    assert mp2["halo"] == parts["halo"] and mp2["rows_per_exchange"] == \
+        2 * parts["halo"]
+    assert all(np.isfinite(v["ms"]) for v in res["mp_halo"].values())
+    assert "item 26" in res["gspmd"]

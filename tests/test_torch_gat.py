@@ -34,7 +34,9 @@ from signnet_basisnet_tpu_torch.data import add_lap_pe
 from signnet_basisnet_tpu_torch.graph import from_arrays
 from signnet_basisnet_tpu_torch.models import conv as tconv
 from signnet_basisnet_tpu_torch.models import signnet as tsignnet
+from signnet_basisnet_tpu_torch.nn.init import init_parameters
 
+import torch_ranks
 from test_torch_pe import packed, small_graphs, step_parity
 from test_torch_pna import layer_parity
 
@@ -109,13 +111,22 @@ def test_gat_conv_attention_sums_to_one_over_real_edges():
                                                    6))
 
 
-def test_gat_and_gcn_refuse_the_model_parallel_halo():
-    gb = from_arrays(_batch(n_graphs=3))
-    gb.extras["mp_send_idx"] = torch.zeros(1, dtype=torch.int32)
-    x = torch.zeros(gb.num_nodes, 4)
-    for layer in (tconv.GATConv(4, 2, num_heads=2), tconv.GCNConv(4, 2)):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            layer(gb, x)
+def test_gat_and_gcn_refuse_the_model_parallel_halo(tmp_path):
+    """GAT and GCN read their source rows through `src_features` on a
+    model-parallel shard (they refused one before the parallel paths were
+    ported): on a one-rank shard each equals the layer on the plain batch
+    (tests/test_torch_mp_halo.py holds the route across ranks)."""
+    arrays = _batch(n_graphs=3)
+    gb = from_arrays(arrays)
+    x = torch.randn(gb.num_nodes, 4, generator=torch.Generator().manual_seed(0))
+    layers = (tconv.GATConv(4, 2, num_heads=2), tconv.GCNConv(4, 2))
+    for layer in layers:
+        init_parameters(layer, torch.Generator().manual_seed(1))
+    want = [layer(gb, x) for layer in layers]
+    with torch_ranks.one_rank_shard(arrays, tmp_path) as shard:
+        got = [layer(shard, x) for layer in layers]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
 GAT_NET = dict(hidden_dim=16, out_dim=16, n_layers=2, num_heads=4,

@@ -45,9 +45,12 @@ from signnet_basisnet_tpu_torch.data import (add_lap_pe, choose_budgets,
 from signnet_basisnet_tpu_torch.graph import from_arrays
 from signnet_basisnet_tpu_torch.graph import segment as tseg
 from signnet_basisnet_tpu_torch.models import conv as tconv
+from signnet_basisnet_tpu_torch.nn.init import init_parameters
 from signnet_basisnet_tpu_torch.training import (adam, build_steps,
                                                  load_config,
                                                  make_zinc_predict)
+
+import torch_ranks
 
 LR = 1e-3
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -156,13 +159,26 @@ def test_gatedgcn_layer_matches_jax(backend, features, graph_norm):
                                    **TOL)
 
 
-def test_gatedgcn_layer_refuses_the_model_parallel_halo():
-    gb = from_arrays(_packed())
-    gb.extras["mp_send_idx"] = torch.zeros(1, dtype=torch.int32)
+def test_gatedgcn_layer_refuses_the_model_parallel_halo(tmp_path):
+    """The layer takes the halo route on a model-parallel shard (it
+    refused one before the parallel paths were ported): on a one-rank
+    shard, with the exchanged rows through B and D appended, it equals
+    the layer on the plain batch (tests/test_torch_mp_halo.py holds the
+    route across ranks)."""
+    arrays = _packed()
+    gb = from_arrays(arrays)
     layer = tconv.GatedGCNLayer(16, 16)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        layer(gb, torch.zeros(gb.num_nodes, 16),
-              torch.zeros(gb.num_edges, 16))
+    init_parameters(layer, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(gb.num_nodes, 16, generator=g)
+    e = torch.randn(gb.num_edges, 16, generator=g)
+    want_h, want_e = layer(gb, h, e)
+    with torch_ranks.one_rank_shard(arrays, tmp_path) as shard:
+        got_h, got_e = layer(shard, h, torch_ranks.edge_rows(e, shard))
+    real = gb.edge_mask > 0
+    torch.testing.assert_close(got_h, want_h, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_e[:gb.num_edges][real], want_e[real],
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("edge_feat,pe_init", [(True, "lap_pe"),

@@ -42,6 +42,12 @@ algorithms, for the BasisNet, SignNet-Transformer, BernNet and sign-flip
 GatNet rows, launching none of K1-K5; the vmapped trainer follows the
 serial steps in f64 within 1e-6, and `train_filters.run` trains there,
 serially and vmapped (the initial losses within 1e-4).
+The parallel paths on the card (ranks are processes that
+`parallel.mesh.spawn_ranks` starts from tests/torch_ranks.py): a
+data-parallel step in a world of one rank over NCCL against the mean of
+the single-device steps (1e-4 relative; K1 launched per microbatch), and
+a model-parallel step at mp = 2 (two ranks sharing the card over gloo)
+against the single-device step in f64 within 1e-9, with no kernel.
 """
 import importlib
 
@@ -1084,3 +1090,79 @@ def test_train_filters_runs_on_the_card_without_kernels(cuda, tmp_path):
         assert np.abs(first - 1).max() <= 1e-4
     torch.cuda.synchronize()
     assert _kernel_counts() == before
+
+
+# ---------------------------------------------------------- parallel paths
+
+PAR_NET = dict(hidden_dim=16, out_dim=16, n_layers=3, pos_enc_dim=4,
+               lap_method="sign_inv", sign_inv_layers=2, phi_out_dim=2,
+               dropout=0.0)
+
+
+def _par_batches(n=2):
+    """Two tiled batches of 12 synthetic molecules, k = 4."""
+    gs = synthetic_zinc(48, 0, 0, seed=3)["train"]
+    add_lap_pe(gs, 4)
+    nb, eb, gc = choose_budgets(gs, 12, tile=32)
+    return pack_batches(gs, nb, eb, gc, k=4, tile=32)[:n]
+
+
+def test_dp_step_at_world_size_one_on_the_card(cuda):
+    """build_dp_steps in a world of one rank over NCCL (a card a rank)
+    with two microbatches under pallas_tile: its gradients and BN
+    statistics are the mean of the two single-device steps' from the same
+    seeded init (1e-4 relative + 1e-6: index_add_'s atomics sum in any
+    order on the card), and it launches K1 as the two single-device steps
+    do together."""
+    import numpy as np
+    import torch_ranks
+    from signnet_basisnet_tpu_torch.parallel.mesh import spawn_ranks
+    micro = _par_batches()
+    case = dict(kind="dp_step", name="GIN", net=PAR_NET, variables=None,
+                lap_method="sign_inv", backend="pallas_tile", micro=[micro])
+    (got,), = spawn_ranks(torch_ranks.run_cases, 1, ([case],),
+                          device="cuda", timeout=300)
+    seg.set_agg_backend("pallas_tile")
+    try:
+        singles = [torch_ranks.single_step(dict(case, arrays=a), "cuda")
+                   for a in micro]
+    finally:
+        seg.set_agg_backend("xla")
+    want_k1 = sum(s["launches"]["K1"] for s in singles)
+    assert want_k1 > 0 and got["launches"] == dict(
+        singles[0]["launches"], K1=want_k1)
+    for key in ("grads", "buffers"):
+        for n, a in singles[0][key].items():
+            mean = (a + singles[1][key][n]) / 2
+            np.testing.assert_allclose(got[key][n], mean, rtol=1e-4,
+                                       atol=1e-6, err_msg=n)
+
+
+def test_mp_step_on_the_card(cuda):
+    """build_mp_steps at mp = 2, two ranks sharing the card over gloo, in
+    f64: loss, MAE, gradients (of each tensor's largest, or of 1e-4 of the
+    model's largest) and BN statistics within 1e-9 of the single-device
+    step on the card from the same seeded init, the two ranks equal, and
+    no kernel launched (a shard carries no tile ranges)."""
+    import numpy as np
+    import torch_ranks
+    from signnet_basisnet_tpu_torch.parallel.mesh import spawn_ranks
+    case = dict(kind="mp_step", name="GatedGCN", net=PAR_NET,
+                variables=None, lap_method="sign_inv",
+                arrays=_par_batches(1)[0], dtype=torch.float64)
+    ranks = [r[0] for r in spawn_ranks(torch_ranks.run_cases, 2, ([case],),
+                                       device="cuda", timeout=300)]
+    want = torch_ranks.single_step(case, "cuda")
+    top = max(float(np.abs(g).max()) for g in want["grads"].values())
+    for r in ranks:
+        assert r["launches"] == {k: 0 for k in r["launches"]}
+        for key in ("loss", "mae"):
+            assert abs(r[key] - want[key]) <= 1e-9 * abs(want[key])
+        for n, g in want["grads"].items():
+            assert float(np.abs(r["grads"][n] - g).max()) <= 1e-9 * max(
+                float(np.abs(g).max()), 1e-4 * top), n
+        for n, b in want["buffers"].items():
+            np.testing.assert_allclose(r["buffers"][n], b, rtol=1e-9,
+                                       atol=1e-12, err_msg=n)
+    for n, g in ranks[0]["grads"].items():
+        np.testing.assert_array_equal(ranks[1]["grads"][n], g)

@@ -152,13 +152,29 @@ def test_lspe_layer_matches_jax(features):
                                    **TOL)
 
 
-def test_lspe_layer_refuses_the_model_parallel_halo():
-    gb = from_arrays(_batch())
-    gb.extras["mp_send_idx"] = torch.zeros(1, dtype=torch.int32)
+def test_lspe_layer_refuses_the_model_parallel_halo(tmp_path):
+    """The GatedGCN-LSPE layer reads B2 h, A2 [h || p] and C2 p of its
+    sources through `src_features` on a model-parallel shard (it refused
+    one before the parallel paths were ported): on a one-rank shard it
+    equals the layer on the plain batch (tests/test_torch_mp_halo.py holds
+    the route across ranks)."""
+    import torch_ranks
+    from signnet_basisnet_tpu_torch.nn.init import init_parameters
+    arrays = _batch()
+    gb = from_arrays(arrays)
     layer = tconv.GatedGCNLSPELayer(8, 8)
-    z = torch.zeros(gb.num_nodes, 8)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        layer(gb, z, z, torch.zeros(gb.num_edges, 8))
+    init_parameters(layer, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(0)
+    h, p = (torch.randn(gb.num_nodes, 8, generator=g) for _ in range(2))
+    e = torch.randn(gb.num_edges, 8, generator=g)
+    want = layer(gb, h, p, e)
+    with torch_ranks.one_rank_shard(arrays, tmp_path) as shard:
+        got = layer(shard, h, p, torch_ranks.edge_rows(e, shard))
+    real = gb.edge_mask > 0
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[2][:gb.num_edges][real], want[2][real],
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("model_name,pe,backend", [

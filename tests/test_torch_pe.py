@@ -281,12 +281,19 @@ def test_canonical_ref_keeps_the_published_minus_two():
         assert np.array_equal(got[rows, 1], pe[rows, 1]), method
 
 
-def test_canonical_refuses_the_model_parallel_halo():
+def test_canonical_refuses_the_model_parallel_halo(tmp_path):
+    """On a model-parallel shard the canonical signs come from per-graph
+    counts summed over the mp group (the method refused a shard before the
+    parallel paths were ported): on a one-rank shard they are the plain
+    batch's, bit for bit (tests/test_torch_mp_halo.py holds them across
+    ranks)."""
+    import torch_ranks
     arrays, pe = _pe_batch()
-    gb = from_arrays(arrays)
-    gb.extras["mp_send_idx"] = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tpe.apply_lap_method("canonical", gb, torch.from_numpy(pe))
+    want = tpe.apply_lap_method("canonical", from_arrays(arrays),
+                                torch.from_numpy(pe))
+    with torch_ranks.one_rank_shard(arrays, tmp_path) as shard:
+        got = tpe.apply_lap_method("canonical", shard, torch.from_numpy(pe))
+    assert torch.equal(got, want)
 
 
 def test_sign_flip_draws_half_negative_columns_from_its_seed():

@@ -54,8 +54,10 @@ from signnet_basisnet_tpu_torch.data import (add_lap_pe, avg_degree_stats,
 from signnet_basisnet_tpu_torch.graph import batch_np, from_arrays
 from signnet_basisnet_tpu_torch.graph import segment as tseg
 from signnet_basisnet_tpu_torch.models import conv as tconv
+from signnet_basisnet_tpu_torch.nn.init import init_parameters
 from signnet_basisnet_tpu_torch.nn.set2set import GRUStep
 
+import torch_ranks
 from test_torch_pe import _flat, _port_view, packed, small_graphs, \
     step_parity
 
@@ -408,16 +410,28 @@ def test_gru_step_matches_flax_gru_cell():
                                    rtol=1e-4, atol=1e-6)
 
 
-def test_pna_layers_refuse_the_model_parallel_halo():
-    gb = from_arrays(molecules())
-    gb.extras["mp_send_idx"] = torch.zeros(1, dtype=torch.int32)
-    h, e = torch.zeros(gb.num_nodes, 4), torch.zeros(gb.num_edges, 4)
-    for layer in (tconv.PNALayer(4, 4, 4, ["mean"], ["identity"], 1.0,
-                                 towers=2),
-                  tconv.PNANoTowersLayer(4, 4, 4, ["mean"], ["identity"],
-                                         1.0)):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            layer(gb, h, e)
+def test_pna_layers_refuse_the_model_parallel_halo(tmp_path):
+    """The PNA layers read their source rows through `src_features` on a
+    model-parallel shard (they refused one before the parallel paths were
+    ported): on a one-rank shard each equals the layer on the plain batch
+    (tests/test_torch_mp_halo.py holds the route across ranks)."""
+    arrays = molecules()
+    gb = from_arrays(arrays)
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(gb.num_nodes, 4, generator=g)
+    e = torch.randn(gb.num_edges, 4, generator=g)
+    layers = (tconv.PNALayer(4, 4, 4, ["mean", "max"], ["identity"], 1.0,
+                             towers=2, edge_features=True),
+              tconv.PNANoTowersLayer(4, 4, 4, ["mean", "std"], ["identity"],
+                                     1.0))
+    for layer in layers:
+        init_parameters(layer, torch.Generator().manual_seed(1))
+    want = [layer(gb, h, e) for layer in layers]
+    with torch_ranks.one_rank_shard(arrays, tmp_path) as shard:
+        got = [layer(shard, h, torch_ranks.edge_rows(e, shard))
+               for layer in layers]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 # --------------------------------------------------------------- the net

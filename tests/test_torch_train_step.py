@@ -42,9 +42,12 @@ from signnet_basisnet_tpu_torch.data import (add_lap_pe, choose_budgets,
                                              pack_batches, synthetic_zinc)
 from signnet_basisnet_tpu_torch.graph import from_arrays
 from signnet_basisnet_tpu_torch.graph import segment as tseg
+from signnet_basisnet_tpu_torch.parallel.mesh import spawn_ranks
 from signnet_basisnet_tpu_torch.training import (adam, build_steps,
                                                  load_config,
                                                  make_zinc_predict)
+
+import torch_ranks
 
 LR = 1e-3
 NET = dict(hidden_dim=12, out_dim=12, n_layers=3, pos_enc_dim=4,
@@ -259,7 +262,7 @@ def test_train_zinc_runs_the_flagship_with_the_pe_options_on_cpu(tmp_path,
 
 
 @pytest.mark.parametrize("override,match", [
-    (["train.mp", "2"], "item 20"),
+    (["train.num_microbatches", "2"], "JAX train_zinc never reads it"),
     (["model.model", "Transformer", "model.full_graph", "true"],
      "never calls data/transforms.py make_full_graph")])
 def test_train_zinc_refuses_unported_options(override, match):
@@ -288,3 +291,41 @@ def test_train_zinc_runs_the_pna_and_gat_configs_on_cpu(config, tmp_path):
     res = train_zinc.run(cfg, device="cpu", log=logs.append)
     assert np.isfinite(res.val_mae) and np.isfinite(res.test_mae)
     assert any(f"model: {cfg.model.model} " in m for m in logs)
+
+
+MP_RUN = ["train.epochs", "2", "train.batch_size", "8", "data.synth_train",
+          "32", "data.synth_eval", "8", "model.n_layers", "2",
+          "model.hidden_dim", "8", "model.out_dim", "8",
+          "model.sign_inv_layers", "2", "out_dir", ""]
+
+
+def test_train_zinc_trains_model_parallel_on_cpu_ranks():
+    """train.mp 2 on two gloo ranks (the flagship config at width 8, 2
+    epochs): the shards' budgets are logged by rank 0 alone, both ranks
+    end with the same history, and it is the single-device run's within
+    1e-4 (the mp step is the single-device step up to f32 rounding, which
+    Adam turns into steps of up to lr on the weights whose exact gradient
+    is 0: the runs part by 2e-5 here).  In a process outside a world of
+    two ranks it refuses."""
+    cfg = load_config("configs/gin_zinc_signinv_gin.json", MP_RUN)
+    try:
+        single = train_zinc.run(cfg, device="cpu", log=lambda m: None)
+    finally:
+        tseg.set_agg_backend("xla")
+    case = dict(kind="train_zinc", config="configs/gin_zinc_signinv_gin.json",
+                overrides=MP_RUN + ["train.mp", "2"])
+    ranks = spawn_ranks(torch_ranks.run_cases, 2, ([case],), device="cpu",
+                        timeout=300)
+    (r0,), (r1,) = ranks
+    assert any(m.startswith("mp=2: edge shard ") for m in r0["logs"])
+    key = ("train_loss", "train_mae", "val_loss", "val_mae", "lr")
+    hist = lambda h: [[rec[k] for k in key] for rec in h]
+    assert r1["logs"] == [] and hist(r1["history"]) == hist(r0["history"])
+    np.testing.assert_allclose(hist(r0["history"]), hist(single.history),
+                               rtol=1e-4)
+    np.testing.assert_allclose([r0["val_mae"], r0["test_mae"]],
+                               [single.val_mae, single.test_mae], rtol=1e-4)
+    mp_cfg = load_config("configs/gin_zinc_signinv_gin.json",
+                         MP_RUN + ["train.mp", "2"])
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        train_zinc.run(mp_cfg, device="cpu", log=lambda m: None)
