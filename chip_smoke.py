@@ -225,9 +225,11 @@ each so a stall shows where it happened:
    largest or of 1e-4 of the model's, BN statistics; f32 as 13a bounds a
    card step: the error against the f64 step of the loss, the MAE, each
    BN statistic and the gradients (median over tensors and worst tensor)
-   within 10x the same mp step's on two CPU ranks, run meanwhile in a
-   thread), zero K1-K5 launches, the halo H, the rows and bytes an
-   exchange moves and the step ms; 16c train_zinc with
+   within 10x the same mp step's on the CPU, which the same two ranks run
+   after every timed step),
+   zero K1-K5 launches, the halo H, the rows and bytes an exchange moves,
+   the step ms, and the collectives of a step timed alone (a synchronize
+   before and after each); 16c train_zinc with
    train.mp 2 for 2 epochs of the synthetic stand-in in the same world
    (the train loss falls, rank 0 alone logs, no kernel), then
    bench_scaling at the world sizes one card allows (DP world 1 over NCCL
@@ -811,6 +813,25 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
         worst_one_order=worst_one_order,
         worst_plain_vs_pr4_bar=worst_plain, f64_gap=f64_gap,
         worst_bn=worst_bn)
+
+
+def _counts():
+    """Every kernel wrapper's launch counter, K1-K5."""
+    from signnet_basisnet_tpu_torch import ops
+    return {"K1": ops.spmm_tiled.launches,
+            "K2": ops.edge_softmax_attention_tiled.launches_fwd,
+            "K3": ops.edge_softmax_attention_tiled.launches_bwd,
+            "K4": ops.gatedgcn_gate_tiled.launches,
+            "K5": ops.spmm_flat.launches}
+
+
+def _reset_counts():
+    from signnet_basisnet_tpu_torch import ops
+    ops.spmm_tiled.launches = 0
+    ops.edge_softmax_attention_tiled.launches_fwd = 0
+    ops.edge_softmax_attention_tiled.launches_bwd = 0
+    ops.gatedgcn_gate_tiled.launches = 0
+    ops.spmm_flat.launches = 0
 
 
 def _phase_13(record, dev, reset_counts, launches):
@@ -1699,24 +1720,6 @@ P16_TIMEOUT = 600
 P16_DP_KERNELS = ("K1", "K2", "K3", "K4", "K5")
 
 
-def _p16_counts():
-    from signnet_basisnet_tpu_torch import ops
-    return {"K1": ops.spmm_tiled.launches,
-            "K2": ops.edge_softmax_attention_tiled.launches_fwd,
-            "K3": ops.edge_softmax_attention_tiled.launches_bwd,
-            "K4": ops.gatedgcn_gate_tiled.launches,
-            "K5": ops.spmm_flat.launches}
-
-
-def _p16_reset_counts():
-    from signnet_basisnet_tpu_torch import ops
-    ops.spmm_tiled.launches = 0
-    ops.edge_softmax_attention_tiled.launches_fwd = 0
-    ops.edge_softmax_attention_tiled.launches_bwd = 0
-    ops.gatedgcn_gate_tiled.launches = 0
-    ops.spmm_flat.launches = 0
-
-
 def _p16_model(config, dev, dtype):
     """The config's net at its published widths, seeded (every process
     makes the same weights), and its lap_method."""
@@ -1768,21 +1771,62 @@ def _p16_dp(rank, dev, spec):
     train, _ = build_dp_steps(model, make_zinc_predict(model, lap),
                               adam(model.parameters()))
     with _deterministic():
-        _p16_reset_counts()
+        _reset_counts()
         m = train(stack, P16_LR, 0)
         torch.cuda.synchronize()
-        out = _p16_record(model, m, _p16_counts())
+        out = _p16_record(model, m, _counts())
     if spec["dtype"] == "float32":
         out["ms"] = _p16_ms(lambda: train(stack, P16_LR, 0))
     seg.set_agg_backend("xla")
     return out
 
 
+def _p16_collectives(step):
+    """One call of `step` with each of its collectives timed alone: a
+    synchronize before it and after it has ended, so that neither the
+    card's queued work nor the host's next launches count.  Returns the
+    collectives made, the ms spent in them and the ms of the whole step
+    (which the synchronizes lengthen)."""
+    import torch
+    import torch.distributed as dist
+    spent, made = [0.0], [0]
+    saved = {name: getattr(dist, name)
+             for name in ("all_reduce", "all_to_all_single")}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = fn(*args, **kwargs)
+            if work is not None:
+                work.wait()
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            made[0] += 1
+            return work
+        return call
+
+    try:
+        for name, fn in saved.items():
+            setattr(dist, name, timed(fn))
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        whole = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    return {"collectives": made[0], "collective_ms": spent[0] * 1e3,
+            "step_ms": whole * 1e3}
+
+
 def _p16_mp(rank, dev, spec):
     """One build_mp_steps train step of a config's net on this rank's
     shard of one batch, under deterministic algorithms, with the launches
     (none expected) and the layout; then, on the card, the warm step's ms
-    (f32)."""
+    (f32) and a step with its collectives timed alone.  With spec["cpu"]
+    the rank runs the step on the CPU instead (gloo takes CPU tensors too),
+    on half the host's cores."""
     import torch
     import torch.distributed as dist
     from signnet_basisnet_tpu_torch.parallel import (build_mp_steps,
@@ -1791,6 +1835,9 @@ def _p16_mp(rank, dev, spec):
                                                      shard_arrays_mp)
     from signnet_basisnet_tpu_torch.training import adam, make_zinc_predict
     dtype = getattr(torch, spec["dtype"])
+    if spec.get("cpu"):
+        dev = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
     model, lap = _p16_model(spec["config"], dev, dtype)
     parts = partition_batch_mp(spec["arrays"], dist.get_world_size())
     arrs = shard_arrays_mp(device_arrays_mp(parts), rank, dev)
@@ -1800,13 +1847,14 @@ def _p16_mp(rank, dev, spec):
     train, _ = build_mp_steps(model, make_zinc_predict(model, lap),
                               adam(model.parameters()))
     with _deterministic():
-        _p16_reset_counts()
+        _reset_counts()
         m = train(arrs, P16_LR)
-        out = _p16_record(model, m, _p16_counts())
+        out = _p16_record(model, m, _counts())
     out.update(halo=parts["halo"], shard_n=parts["shard_n"],
                e_shard=parts["edges"]["senders"].shape[1])
     if spec["dtype"] == "float32" and dev.type == "cuda":
         out["ms"] = _p16_ms(lambda: train(arrs, P16_LR))
+        out["collectives"] = _p16_collectives(lambda: train(arrs, P16_LR))
     return out
 
 
@@ -1816,10 +1864,10 @@ def _p16_train_zinc(rank, dev, spec):
     from signnet_basisnet_tpu_torch.training import load_config
     cfg = load_config(CONFIG, spec["overrides"])
     logs = []
-    _p16_reset_counts()
+    _reset_counts()
     res = run(cfg, device="cuda", log=logs.append)
     return {"history": res.history, "logs": logs, "val_mae": res.val_mae,
-            "test_mae": res.test_mae, "launches": _p16_counts(),
+            "test_mae": res.test_mae, "launches": _counts(),
             "train_steps": res.train_steps}
 
 
@@ -1881,26 +1929,55 @@ def _phase_16(record):
 
     def single(config, arrays, dtype, backend):
         """The single-device train step from the same seeded init on the
-        card, under deterministic algorithms: its record and ms."""
+        card, under deterministic algorithms: its record, and a function
+        that times its warm step (ms)."""
         seg.set_agg_backend(backend)
         model, lap = _p16_model(config, dev, dtype)
         step = build_steps(model, make_zinc_predict(model, lap),
                            adam(model.parameters()))[0]
         gb = from_arrays(arrays).to(dev).cast_floats(dtype)
         with _deterministic():
-            _p16_reset_counts()
-            out = _p16_record(model, step(gb, P16_LR), _p16_counts())
-        if dtype == torch.float32:
-            out["ms"] = _p16_ms(lambda: step(gb, P16_LR))
+            _reset_counts()
+            out = _p16_record(model, step(gb, P16_LR), _counts())
         seg.set_agg_backend("xla")
-        return out
+
+        def ms():
+            seg.set_agg_backend(backend)
+            try:
+                return _p16_ms(lambda: step(gb, P16_LR))
+            finally:
+                seg.set_agg_backend("xla")
+        return out, ms
 
     # ---------------------------------------------------------- 16a
     with Phase("16a data parallel (flagship, pallas_tile)"):
+        # 16b and 16c run in the same two-rank world as 16a (one start).
+        # GIN on the flagship's tiled batch: the shard boundary (node
+        # 1792, 7 tiles) cuts no graph, so the halo is padding only;
+        # GatedGCN on the same 128 graphs packed untiled into the same
+        # 3584 slots, where the boundary cuts a graph and the halo carries
+        # its rows
+        mp_nets = ((CONFIG, "GIN 16x95", micro[0]),
+                   (GATEDGCN_CONFIG, "GatedGCN 16x68",
+                    pack_batches(gs, nb, eb, gc, k=8)[0]))
+        mp_jobs = [("_p16_mp", dict(config=c, arrays=a, dtype=dt))
+                   for c, _, a in mp_nets for dt in ("float32", "float64")]
+        # 16b's f32 reference: the same mp steps on the CPU, run by the
+        # same two ranks after every timed step
+        cpu_jobs = [("_p16_mp", dict(config=c, arrays=a, dtype="float32",
+                                     cpu=True)) for c, _, a in mp_nets]
+        # NCCL with two ranks on the one card (recorded, not asserted:
+        # NCCL is expected to refuse them) runs in a thread while the
+        # single-device reference steps are taken, and ends before any
+        # step is timed
+        pool = ThreadPoolExecutor(1)
+        nccl_probe = pool.submit(spawn_ranks, _p16_nccl_probe, 2,
+                                 device="cuda", backend="nccl", timeout=60)
+        pool.shutdown(wait=False)
         refs = {}
         for dt, backend in (("float32", "pallas_tile"), ("float64", "xla")):
-            a, b = (single(CONFIG, m, getattr(torch, dt), backend)
-                    for m in micro)
+            (a, a_ms), (b, _) = (single(CONFIG, m, getattr(torch, dt),
+                                        backend) for m in micro)
             # the mean, and each tensor's scale: the larger of the two
             # steps' largest (their sum may cancel)
             refs[dt] = (a, {n: None if g is None else (
@@ -1909,7 +1986,16 @@ def _phase_16(record):
                                                    .max()), 1e-30))
                 for n, g in a["grads"].items()},
                 {n: (v + b["buffers"][n]) / 2
-                 for n, v in a["buffers"].items()})
+                 for n, v in a["buffers"].items()}, a_ms)
+        t0 = time.time()
+        try:
+            nccl_probe.result()
+            nccl = "NCCL ran two ranks on one card"
+        except RuntimeError as e:
+            nccl = "refused: " + str(e).strip().splitlines()[-1][:300]
+        print(f"  the NCCL probe ended {time.time() - t0:.1f} s after the "
+              f"reference steps", flush=True)
+        single_ms = refs["float32"][3]()
         specs = {dt: dict(backend=backend, dtype=dt)
                  for dt, backend in (("float32", "pallas_tile"),
                                      ("float64", "xla"))}
@@ -1918,33 +2004,13 @@ def _phase_16(record):
             timeout=P16_TIMEOUT)[0]
         dp2_jobs = [("_p16_dp", dict(s, micro=[[micro[0]], [micro[1]]]))
                     for s in specs.values()]
-        # 16b and 16c run in the same two-rank world (one start).  GIN on
-        # the flagship's tiled batch: the shard boundary (node 1792, 7
-        # tiles) cuts no graph, so the halo is padding only; GatedGCN on
-        # the same 128 graphs packed untiled into the same 3584 slots,
-        # where the boundary cuts a graph and the halo carries its rows
-        mp_nets = ((CONFIG, "GIN 16x95", micro[0]),
-                   (GATEDGCN_CONFIG, "GatedGCN 16x68",
-                    pack_batches(gs, nb, eb, gc, k=8)[0]))
-        mp_jobs = [("_p16_mp", dict(config=c, arrays=a, dtype=dt))
-                   for c, _, a in mp_nets for dt in ("float32", "float64")]
         tz = ("_p16_train_zinc", dict(overrides=[
             "train.mp", "2", "train.epochs", "2", "data.synth_train", "384",
             "data.synth_eval", "128", "train.print_epoch_interval", "1",
             "out_dir", ""]))
-        # 16b's f32 reference: the same mp steps on two CPU ranks, in a
-        # thread of this process while the card's world runs
-        # NCCL with two ranks on the one card, likewise (recorded, not
-        # asserted: NCCL is expected to refuse them)
-        pool = ThreadPoolExecutor(2)
-        cpu_world = pool.submit(spawn_ranks, _p16_world, 2, (
-            [j for j in mp_jobs if j[1]["dtype"] == "float32"],),
-            device="cpu", timeout=P16_TIMEOUT)
-        nccl_probe = pool.submit(spawn_ranks, _p16_nccl_probe, 2,
-                                 device="cuda", backend="nccl", timeout=60)
-        pool.shutdown(wait=False)
         t0 = time.time()
-        w2 = spawn_ranks(_p16_world, 2, (dp2_jobs + mp_jobs + [tz],),
+        w2 = spawn_ranks(_p16_world, 2, (dp2_jobs + mp_jobs + [tz]
+                                          + cpu_jobs,),
                          device="cuda", timeout=P16_TIMEOUT)
         print(f"  the two-rank world (gloo, one card): "
               f"{time.time() - t0:.1f} s", flush=True)
@@ -1960,7 +2026,7 @@ def _phase_16(record):
                         f"16a {tag} rank {rank}: launches {r32['launches']}"
                         f" (f32), {r64['launches']} (f64); expected {want}")
                 for dt, r in (("float32", r32), ("float64", r64)):
-                    _, mean_g, mean_b = refs[dt]
+                    _, mean_g, mean_b, _ = refs[dt]
                     bar = 1e-6 if dt == "float32" else 1e-9
                     worst = 0.0
                     for n, gs_ in mean_g.items():
@@ -1982,7 +2048,7 @@ def _phase_16(record):
                         raise AssertionError(f"16a {tag} {dt}: gradients "
                                              f"{worst:.2e}, BN {bworst:.2e}")
         rec["dp"] = {
-            "single_f32_ms": refs["float32"][0]["ms"],
+            "single_f32_ms": single_ms,
             "world1_nccl_2micro_ms": w1[0]["ms"],
             "world2_gloo_ms": max(r[0]["ms"] for r in w2)}
         print(f"  16a step ms (host clock, warm, f32, pallas_tile): single-"
@@ -1992,20 +2058,16 @@ def _phase_16(record):
               f"gloo, 1 microbatch a rank, both ranks sharing the card "
               f"(overhead, not scaling) {rec['dp']['world2_gloo_ms']:.2f}",
               flush=True)
-        try:
-            nccl_probe.result()
-            nccl = "NCCL ran two ranks on one card"
-        except RuntimeError as e:
-            nccl = "refused: " + str(e).strip().splitlines()[-1][:300]
         rec["nccl_two_ranks_one_card"] = nccl
         print(f"  NCCL with two ranks on the one card: {nccl}", flush=True)
 
     # ---------------------------------------------------------- 16b
     with Phase("16b model parallel, mp = 2 (gloo, one card)"):
-        cpu_mp = cpu_world.result()
         for i, (config, name, mp_arrays) in enumerate(mp_nets):
-            s32, s64 = (single(config, mp_arrays, dt, "xla")
-                        for dt in (torch.float32, torch.float64))
+            (s32, s32_ms), (s64, _) = (single(config, mp_arrays, dt, "xla")
+                                       for dt in (torch.float32,
+                                                  torch.float64))
+            s32["ms"] = s32_ms()
             r32 = [r[2 + 2 * i] for r in w2]
             r64 = [r[3 + 2 * i] for r in w2]
             for r in r32 + r64:
@@ -2028,7 +2090,7 @@ def _phase_16(record):
             # error against the f64 step within 10x the CPU's mp step's
             # (the same uncentred-variance BatchNorm), median over tensors
             # and worst tensor; BN statistics within 10x the CPU's + 1e-6
-            cpu32 = cpu_mp[0][i]
+            cpu32 = w2[0][7 + i]
             errs = _p16_grad_errors(r32[0]["grads"], cpu32["grads"],
                                     s64["grads"])
             card_e = np.array([v[0] for v in errs.values()])
@@ -2068,6 +2130,13 @@ def _phase_16(record):
                   f"warm, f32; two ranks sharing the card over gloo: "
                   f"overhead, not scaling) against the single-device "
                   f"step's {s32['ms']:.2f} ms; launches 0", flush=True)
+            coll = [r["collectives"] for r in r32]
+            print(f"  16b {name} collectives (a step with a synchronize "
+                  f"before and after each, ranks 0 / 1): "
+                  + " / ".join(f"{c['collectives']} taking "
+                               f"{c['collective_ms']:.2f} ms of "
+                               f"{c['step_ms']:.2f}" for c in coll),
+                  flush=True)
             print(f"  16b {name} f64: loss {f64_loss:.2e} apart, gradients "
                   f"within {f64:.2e}, BN statistics {f64_bn:.2e} (bar "
                   f"1e-9); f32: loss {loss32:.2e} from the single-device "
@@ -2085,7 +2154,7 @@ def _phase_16(record):
                 halo=H, shard_n=shard_n, ms=ms, single_ms=s32["ms"],
                 f64_grad=f64, f64_bn=f64_bn, f32_median_x=med,
                 f32_gross_x=gross, loss32=loss32,
-                bn32=max(bn_card.values()))
+                bn32=max(bn_card.values()), collectives=coll)
             if not (f64 <= 1e-9 and f64_bn <= 1e-9 and f64_loss <= 1e-9
                     and med <= 10 and gross <= 10 and not met_bad
                     and not bn_bad and same):
@@ -2094,7 +2163,7 @@ def _phase_16(record):
 
     # ---------------------------------------------------------- 16c
     with Phase("16c train_zinc train.mp 2 and bench_scaling"):
-        tz0, tz1 = w2[0][-1], w2[1][-1]
+        tz0, tz1 = w2[0][6], w2[1][6]
         hist = [h["train_loss"] for h in tz0["history"]]
         print("\n".join("  " + s for s in tz0["logs"]), flush=True)
         print(f"  train losses {hist}; launches {tz0['launches']}",
@@ -2105,8 +2174,7 @@ def _phase_16(record):
             raise AssertionError(f"16c train_zinc mp 2: {hist}, "
                                  f"{tz0['launches']}")
         rec["train_zinc_mp2_losses"] = hist
-        rec["bench_scaling"] = bench_scaling.main(["--worlds", "1,2", "--mp",
-                                                   "1,2", "--reps", "3"])
+        rec["bench_scaling"] = bench_scaling.main(["--reps", "3"])
 
 
 def main():
@@ -3023,12 +3091,6 @@ def main():
                      bound_by=k5_bound["bound_by"], library_ms=k5_library_ms)
         del flush, a_csr
 
-    def reset_counts():
-        spmm_tiled.launches = 0
-        tiled.launches_fwd = tiled.launches_bwd = 0
-        gate.launches = 0
-        flat.launches = 0
-
     # ---------------------------------------------------------------- 2
     def trainer_cfg(extra):
         return load_config(CONFIG, [
@@ -3083,7 +3145,7 @@ def main():
         # eigenvector stack and needs no gradient: 47 per train step
         per_eval = cfg.model.n_layers + cfg.model.sign_inv_layers
         per_train = 2 * per_eval - 1
-        reset_counts()
+        _reset_counts()
         res = run(cfg, device="cuda", log=lambda s: print("  " + s,
                                                           flush=True))
         torch.cuda.synchronize()
@@ -3118,7 +3180,7 @@ def main():
         cfg = trainer_cfg(["train.epochs", "2", "train.compute_dtype",
                            "bfloat16", "data.synth_train", "384",
                            "name", "bf16"])
-        reset_counts()
+        _reset_counts()
         res = run(cfg, device="cuda", log=lambda s: print("  " + s,
                                                           flush=True))
         torch.cuda.synchronize()
@@ -3198,7 +3260,7 @@ def main():
                    f"{cfg.data.agg_backend})"):
             tcfg = transformer_cfg(extra + ["train.epochs", "2", "name",
                                             f"transformer_{name}"])
-            reset_counts()
+            _reset_counts()
             res = run(tcfg, device="cuda", log=lambda s: print("  " + s,
                                                                flush=True))
             torch.cuda.synchronize()
@@ -3294,7 +3356,7 @@ def main():
                    "pallas_tile)"):
             gcfg = gatedgcn_cfg(extra + ["train.epochs", "2", "name",
                                          f"gatedgcn_{name}"])
-            reset_counts()
+            _reset_counts()
             res = run(gcfg, device="cuda", log=lambda s: print("  " + s,
                                                                flush=True))
             torch.cuda.synchronize()
@@ -3335,7 +3397,7 @@ def main():
         # the per-step counts of phases 2-5 (here with SignNet k = 8 for
         # all three nets, so the Transformer's phi runs K1 under
         # pallas_tile: 8 forward and 7 transposed), and nothing under xla
-        reset_counts()
+        _reset_counts()
         res = bench_ops.main([])
         torch.cuda.synchronize()
         counts = bench_ops.launch_counts()
@@ -3427,7 +3489,7 @@ def main():
             for run_name in ("eager", "eager_again", "captured"):
                 model, opt, predict = make(True)
                 if run_name == "captured":
-                    reset_counts()
+                    _reset_counts()
                     step = capture_train_step(model, predict, opt, gbs[0])
                     torch.cuda.synchronize()
                     at_capture = {n: c() for n, c in counters.items()}
@@ -3437,7 +3499,7 @@ def main():
                         raise AssertionError(f"{label}: wrapper counts over "
                                              f"warm-up and capture "
                                              f"{at_capture}, expected {want}")
-                    reset_counts()
+                    _reset_counts()
                 else:
                     step = build_steps(model, predict, opt)[0]
                 losses = [float(step(gbs[i % 2], 1e-3)["loss"])
@@ -3469,7 +3531,7 @@ def main():
             # the eager step's launches by the wrappers' counters (exact),
             # a replay's from the profiler; the profiler's count of the
             # eager step is printed beside them
-            reset_counts()
+            _reset_counts()
             eager(gbs[1], 1e-3)
             torch.cuda.synchronize()
             ce = {n: counters[n]() for n in per_step}
@@ -3688,7 +3750,7 @@ def main():
         (kernel -> (per train step, per eval step)), the forward K1 widths
         against `widths` (width -> per forward), finite metrics; the
         step time of the last epoch (host clock) and peak memory."""
-        reset_counts()
+        _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         with k1_widths() as seen:
             res = run(cfg, device="cuda", log=lambda s: print("  " + s,
@@ -3816,7 +3878,7 @@ def main():
             m = cfg.model
             (per_train, _), want_w = phi_k1(cfg)
             seg.set_agg_backend(cfg.data.agg_backend)
-            reset_counts()
+            _reset_counts()
             with k1_widths() as seen:
                 # 8 of the net's layers (the phi whole), as 10a: the CPU's
                 # f64 step at full depth costs more than the run allows
@@ -3879,16 +3941,13 @@ def main():
                       flush=True)
 
     # --------------------------------------------------------------- 13
-    counts = lambda: {
-        "K1": spmm_tiled.launches, "K2": tiled.launches_fwd,
-        "K3": tiled.launches_bwd, "K4": gate.launches, "K5": flat.launches}
-    _phase_13(record, dev, reset_counts, counts)
+    _phase_13(record, dev, _reset_counts, _counts)
 
     # --------------------------------------------------------------- 14
-    _phase_14(record, reset_counts, counts)
+    _phase_14(record, _reset_counts, _counts)
 
     # --------------------------------------------------------------- 15
-    _phase_15(record, dev, reset_counts, counts, run_path, arrays)
+    _phase_15(record, dev, _reset_counts, _counts, run_path, arrays)
 
     # --------------------------------------------------------------- 16
     _phase_16(record)

@@ -1,15 +1,17 @@
 """Scaling of the parallel paths: the port of the root bench_scaling.py.
 
-    python -m signnet_basisnet_tpu_torch.bench_scaling [--worlds 1,2,4,8]
-        [--mp 1,2,4,8] [--reps 10] [--device cpu]
+    python -m signnet_basisnet_tpu_torch.bench_scaling [--reps 10]
+        [--device cpu]
 
 - Data parallelism, weak scaling (parallel/data_parallel.py): the
   SignNetGNN train step (32 wide, 4-layer SignNet, 8 GINE layers, 2 rho
   layers) with a fixed microbatch of 15 graphs (512 nodes, 2048 edges) on
-  each rank, at each world size: ms a step and microbatches a second.
+  each rank, at world sizes 1, 2, 4 and 8: ms a step and microbatches a
+  second.
 - Model parallelism, strong scaling (parallel/mp_halo.py): one fixed
   global batch of 60 graphs (GatedGCNNet 32 wide, 8 layers, a 4-layer
-  SignNet phi) over mp shards; mp 1 is the single-device step.  The halo
+  SignNet phi) over mp = 1, 2, 4 and 8 shards; mp 1 is the single-device
+  step.  The halo
   H (rows a rank sends each peer), the rows and bytes one exchange of the
   32-wide node features moves a rank, and ms a step.
 - GSPMD: refused (parallel/gspmd.py, ROADMAP.md item 26).
@@ -20,10 +22,10 @@ world size measures scaling; a world of up to two ranks a card shares the
 cards over gloo, and then measures the overhead of the parallel step
 (collectives through host memory, ranks taking turns on one card), not
 scaling: such lines say "overhead, ranks share a card".  Larger worlds are
-skipped.  The run is on the card(s) unless `--device cpu` is given (then
-every world runs over gloo on the CPU, at the same sizes).  Prints one line
-a measurement and, last, one JSON object with every time, the device and
-the card's name and power limit.
+skipped.  The run is on the card(s) unless `--device cpu` is given; then
+worlds of up to two ranks run over gloo on the CPU, at the same sizes.
+Prints one line a measurement and, last, one JSON object with every time,
+the device and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -137,10 +139,14 @@ def _mp_single(dev, reps):
     return _ms_per_step(lambda: train(gb, LR), reps, dev)
 
 
+WORLDS = (1, 2, 4, 8)
+
+
 def _plan(world: int, device: torch.device):
-    """(backend, label) of a world, or None where it is skipped."""
+    """(backend, label) of a world, or None where it is skipped: over two
+    ranks a card, or over two CPU ranks."""
     if device.type == "cpu":
-        return "gloo", "CPU ranks"
+        return ("gloo", "CPU ranks") if world <= 2 else None
     cards = torch.cuda.device_count()
     if world <= cards:
         return "nccl", "scaling, a card a rank"
@@ -151,8 +157,6 @@ def _plan(world: int, device: torch.device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--worlds", default="1,2,4,8")
-    ap.add_argument("--mp", default="1,2,4,8")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -162,11 +166,10 @@ def main(argv=None):
     results = {"device": card, "dp": {}, "mp_halo": {},
                "gspmd": "refused (ROADMAP.md item 26)"}
 
-    for w in (int(v) for v in args.worlds.split(",")):
+    for w in WORLDS:
         plan = _plan(w, device)
         if plan is None:
-            print(f"dp world {w}: skipped (more ranks than two a card)",
-                  flush=True)
+            print(f"dp world {w}: skipped (too many ranks)", flush=True)
             continue
         backend, label = plan
         ms = spawn_ranks(dp_rank, w, (args.reps,), device=device.type,
@@ -176,7 +179,7 @@ def main(argv=None):
         print(f"dp world {w} ({backend}, {label}): {max(ms):8.2f} ms/step "
               f"({w / max(ms) * 1e3:.2f} microbatches/s)", flush=True)
 
-    for mp in (int(v) for v in args.mp.split(",")):
+    for mp in WORLDS:
         if mp == 1:
             ms = _mp_single(device, args.reps)
             results["mp_halo"][1] = {"ms": ms}
@@ -184,8 +187,7 @@ def main(argv=None):
             continue
         plan = _plan(mp, device)
         if plan is None:
-            print(f"mp {mp}: skipped (more ranks than two a card)",
-                  flush=True)
+            print(f"mp {mp}: skipped (too many ranks)", flush=True)
             continue
         backend, label = plan
         res = spawn_ranks(mp_rank, mp, (args.reps,), device=device.type,

@@ -54,9 +54,9 @@ exchange a layer, parameters replicated), one process a shard:
 
 Every rank packs and partitions the same batches (edge and halo budgets
 from every split, with 1.2x edge and 2x halo headroom) and trains on its
-shard; rank 0 logs and writes the results.  A shard carries no tile
-ranges, so no kernel runs there, as in JAX; `model.use_lapeig_loss` is
-refused there, as in JAX.
+shard; rank 0 logs and writes the results and the checkpoints, which
+every rank restores.  A shard carries no tile ranges, so no kernel runs
+there, as in JAX; `model.use_lapeig_loss` is refused there, as in JAX.
 
 Refused: `train.num_microbatches` > 1, which the JAX train_zinc never
 reads (data parallelism runs through parallel.build_dp_steps and
@@ -296,8 +296,15 @@ def _run(cfg, device, log):
             splits["train"], nb, eb, gb_cnt, shuffle=True,
             seed=cfg.train.seed + ep, k=k, tile=tile, prefetch=4,
             device=device)
-    ckpt = (Checkpointer(cfg.train.checkpoint_dir, cfg.train.keep_checkpoints)
-            if cfg.train.checkpoint_dir else None)
+    ckpt = None
+    if cfg.train.checkpoint_dir:
+        ckpt = Checkpointer(cfg.train.checkpoint_dir,
+                            cfg.train.keep_checkpoints)
+        if cfg.train.mp > 1 and dist.get_rank() != 0:
+            # the ranks hold the same state: rank 0 writes it, every rank
+            # restores it (before its first step, so before rank 0 can
+            # write again)
+            ckpt.save = lambda step, state: None
 
     result = fit(
         train_step, eval_step, train_batches_fn=train_fn,

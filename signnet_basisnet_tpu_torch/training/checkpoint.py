@@ -19,7 +19,6 @@ reads the old Adam state: capture after restoring.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import re
 from typing import List, Optional
@@ -56,10 +55,7 @@ class Checkpointer:
         torch.save(state, tmp)
         os.replace(tmp, self.path(step))
         for old in self.steps()[:-self.keep]:
-            # model-parallel ranks save the same state; another may have
-            # removed it first
-            with contextlib.suppress(FileNotFoundError):
-                os.remove(self.path(old))
+            os.remove(self.path(old))
 
     def restore(self, step: Optional[int] = None) -> Optional[dict]:
         step = self.latest_step() if step is None else step

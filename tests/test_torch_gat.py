@@ -112,10 +112,11 @@ def test_gat_conv_attention_sums_to_one_over_real_edges():
 
 
 def test_gat_and_gcn_refuse_the_model_parallel_halo(tmp_path):
-    """GAT and GCN read their source rows through `src_features` on a
-    model-parallel shard (they refused one before the parallel paths were
-    ported): on a one-rank shard each equals the layer on the plain batch
-    (tests/test_torch_mp_halo.py holds the route across ranks)."""
+    """The name is kept from when the layers refused the halo; they now
+    take it.  GAT and GCN read their source rows through `src_features`
+    on a model-parallel shard: on a one-rank shard each equals the layer
+    on the plain batch (tests/test_torch_mp_halo.py holds the route
+    across ranks)."""
     arrays = _batch(n_graphs=3)
     gb = from_arrays(arrays)
     x = torch.randn(gb.num_nodes, 4, generator=torch.Generator().manual_seed(0))

@@ -160,11 +160,10 @@ def test_gatedgcn_layer_matches_jax(backend, features, graph_norm):
 
 
 def test_gatedgcn_layer_refuses_the_model_parallel_halo(tmp_path):
-    """The layer takes the halo route on a model-parallel shard (it
-    refused one before the parallel paths were ported): on a one-rank
-    shard, with the exchanged rows through B and D appended, it equals
-    the layer on the plain batch (tests/test_torch_mp_halo.py holds the
-    route across ranks)."""
+    """The name is kept from when the layer refused the halo; it now
+    takes it.  On a one-rank model-parallel shard, with the exchanged rows
+    through B and D appended, it equals the layer on the plain batch
+    (tests/test_torch_mp_halo.py holds the route across ranks)."""
     arrays = _packed()
     gb = from_arrays(arrays)
     layer = tconv.GatedGCNLayer(16, 16)

@@ -153,11 +153,11 @@ def test_lspe_layer_matches_jax(features):
 
 
 def test_lspe_layer_refuses_the_model_parallel_halo(tmp_path):
-    """The GatedGCN-LSPE layer reads B2 h, A2 [h || p] and C2 p of its
-    sources through `src_features` on a model-parallel shard (it refused
-    one before the parallel paths were ported): on a one-rank shard it
-    equals the layer on the plain batch (tests/test_torch_mp_halo.py holds
-    the route across ranks)."""
+    """The name is kept from when the layer refused the halo; it now
+    takes it.  The GatedGCN-LSPE layer reads B2 h, A2 [h || p] and C2 p
+    of its sources through `src_features` on a model-parallel shard: on a
+    one-rank shard it equals the layer on the plain batch
+    (tests/test_torch_mp_halo.py holds the route across ranks)."""
     import torch_ranks
     from signnet_basisnet_tpu_torch.nn.init import init_parameters
     arrays = _batch()

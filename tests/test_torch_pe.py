@@ -282,11 +282,11 @@ def test_canonical_ref_keeps_the_published_minus_two():
 
 
 def test_canonical_refuses_the_model_parallel_halo(tmp_path):
-    """On a model-parallel shard the canonical signs come from per-graph
-    counts summed over the mp group (the method refused a shard before the
-    parallel paths were ported): on a one-rank shard they are the plain
-    batch's, bit for bit (tests/test_torch_mp_halo.py holds them across
-    ranks)."""
+    """The name is kept from when the method refused the halo; it now
+    takes it.  On a model-parallel shard the canonical signs come from
+    per-graph counts summed over the mp group: on a one-rank shard they
+    are the plain batch's, bit for bit (tests/test_torch_mp_halo.py holds
+    them across ranks)."""
     import torch_ranks
     arrays, pe = _pe_batch()
     want = tpe.apply_lap_method("canonical", from_arrays(arrays),

@@ -411,10 +411,11 @@ def test_gru_step_matches_flax_gru_cell():
 
 
 def test_pna_layers_refuse_the_model_parallel_halo(tmp_path):
-    """The PNA layers read their source rows through `src_features` on a
-    model-parallel shard (they refused one before the parallel paths were
-    ported): on a one-rank shard each equals the layer on the plain batch
-    (tests/test_torch_mp_halo.py holds the route across ranks)."""
+    """The name is kept from when the layers refused the halo; they now
+    take it.  The PNA layers read their source rows through
+    `src_features` on a model-parallel shard: on a one-rank shard each
+    equals the layer on the plain batch (tests/test_torch_mp_halo.py
+    holds the route across ranks)."""
     arrays = molecules()
     gb = from_arrays(arrays)
     g = torch.Generator().manual_seed(0)

@@ -19,6 +19,8 @@ residuals positive, the L1 gradient of the output bias is exactly zero, the
 same Adam noise moves every prediction by up to lr, and the two trajectories
 part at the next step for a reason that is no fault of either package.
 """
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -299,21 +301,24 @@ MP_RUN = ["train.epochs", "2", "train.batch_size", "8", "data.synth_train",
           "model.sign_inv_layers", "2", "out_dir", ""]
 
 
-def test_train_zinc_trains_model_parallel_on_cpu_ranks():
+def test_train_zinc_trains_model_parallel_on_cpu_ranks(tmp_path):
     """train.mp 2 on two gloo ranks (the flagship config at width 8, 2
     epochs): the shards' budgets are logged by rank 0 alone, both ranks
     end with the same history, and it is the single-device run's within
     1e-4 (the mp step is the single-device step up to f32 rounding, which
     Adam turns into steps of up to lr on the weights whose exact gradient
-    is 0: the runs part by 2e-5 here).  In a process outside a world of
-    two ranks it refuses."""
+    is 0: the runs part by 2e-5 here); the checkpoint directory holds the
+    last epoch's state, written by rank 0.  In a process outside a world
+    of two ranks it refuses."""
     cfg = load_config("configs/gin_zinc_signinv_gin.json", MP_RUN)
     try:
         single = train_zinc.run(cfg, device="cpu", log=lambda m: None)
     finally:
         tseg.set_agg_backend("xla")
     case = dict(kind="train_zinc", config="configs/gin_zinc_signinv_gin.json",
-                overrides=MP_RUN + ["train.mp", "2"])
+                overrides=MP_RUN + [
+                    "train.mp", "2", "train.keep_checkpoints", "1",
+                    "train.checkpoint_dir", str(tmp_path / "ckpt")])
     ranks = spawn_ranks(torch_ranks.run_cases, 2, ([case],), device="cpu",
                         timeout=300)
     (r0,), (r1,) = ranks
@@ -325,6 +330,7 @@ def test_train_zinc_trains_model_parallel_on_cpu_ranks():
                                rtol=1e-4)
     np.testing.assert_allclose([r0["val_mae"], r0["test_mae"]],
                                [single.val_mae, single.test_mae], rtol=1e-4)
+    assert os.listdir(tmp_path / "ckpt") == ["epoch_1.pt"]
     mp_cfg = load_config("configs/gin_zinc_signinv_gin.json",
                          MP_RUN + ["train.mp", "2"])
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
