@@ -86,7 +86,7 @@ each so a stall shows where it happened:
    must start at epoch 2 at the saved LR;
 10. the masked all-eigenvector SignNet (full-EVD batches, k = 37): one
    full-width train step of configs/gatedgcn_zinc_signinv_masked.json with
-   data.agg_backend pallas_tile (GatedGCNNet 67 wide, cut to 8 of its 16
+   data.agg_backend pallas_tile (GatedGCNNet 67 wide, cut to 4 of its 16
    layers for this check, its whole 8-layer phi over the [N, 74, 67]
    stack through K1 at F = 74 and 4958) and of
    configs/transformer_zinc_signinv_masked.json as shipped (tile_dense,
@@ -133,11 +133,11 @@ each so a stall shows where it happened:
    4a's bar (gradients and BN statistics; the card's plain f64 step within
    1e-9 of the CPU's; a tensor that is 0 in exact arithmetic measured
    against 1e-6 of the largest): the Alchemy SignNetGNN (108 wide, 8-layer
-   GIN phi, 8-layer rho, 16 GINE layers, 12 targets) on 64 synthetic
-   Alchemy graphs, the GINE-ZINC one (110 wide, 8-layer phi, 1-layer rho,
-   6 GINE layers, eigenvalues ignored) on 32 synthetic ZINC graphs (the
-   CPU's f64 step at 128 graphs is the slow part), and NetGINE (64 x 6,
-   Set2Set); then warm eager steps on full batches (64 and 128 graphs)
+   GIN phi, 8-layer rho, 8 of its 16 GINE layers, 12 targets) on 64
+   synthetic Alchemy graphs, the GINE-ZINC one (110 wide, 8-layer phi,
+   1-layer rho, 6 GINE layers, eigenvalues ignored) on 32 synthetic ZINC
+   graphs (the CPU's f64 step at 128 graphs is the slow part), and
+   NetGINE (64 x 6, Set2Set); then warm eager steps on full batches (64 and 128 graphs)
    with the profiler's device time and busy share and the peak memory,
    and one step with the MaskedGINEConv phi; then train_alchemy.run and
    train_zinc_gine.run for 2 epochs on 256-384 synthetic graphs at
@@ -154,9 +154,9 @@ each so a stall shows where it happened:
    published rows of RESULTS.md's band-filter table (SignNet-DS,
    Transformer base, BasisNet) on the real 32x32 grid with all 1024
    eigenvectors, `--matmul_precision highest`, through `train_filters.run`
-   (1 image x 200 epochs: PARAMETERS asserted 48,732 / 48,331 / 48,221),
+   (1 image x 100 epochs: PARAMETERS asserted 48,732 / 48,331 / 48,221),
    then image 0's model apart: the epoch's time on the host clock, the
-   loss at epochs 1, 100 and 200 (finite, falling), a profiled epoch
+   loss at epochs 1, 50 and 100 (finite, falling), a profiled epoch
    (device time, busy share, top device ops), peak memory and, for
    BasisNet, the CUDA-event time of the first IGN layer's contractions
    over the projector stacks, which every epoch recomputes; 14c
@@ -166,8 +166,7 @@ each so a stall shows where it happened:
    gradients of the model's largest; the 4-step loss gap printed: at n =
    1024 f64 noise on zero-gradient weights is enough for Adam too);
    in f32 through `train_filters.run` the initial losses (1 epoch) within
-   1e-4, and after 4 epochs the gap printed beside the serial run's
-   distance from the CPU's serial run, with whether the rtol 2e-3 of
+   1e-4, and after 4 epochs the gap printed, with whether the rtol 2e-3 of
    tests/test_filters_vmap.py holds (in f32 Adam moves the weights whose
    exact gradient is 0 by +-lr on their rounding noise, which each
    summation order draws anew); zero K1-K5 launches throughout.
@@ -232,8 +231,30 @@ each so a stall shows where it happened:
    before and after each); 16c train_zinc with
    train.mp 2 for 2 epochs of the synthetic stand-in in the same world
    (the train loss falls, rank 0 alone logs, no kernel), then
-   bench_scaling at the world sizes one card allows (DP world 1 over NCCL
-   and 2 over gloo, mp 1 and 2).
+   bench_scaling at the world sizes one card allows (DP and GSPMD world 1
+   over NCCL and 2 over gloo, mp 1 and 2).
+17. GSPMD (`_phase_17`; parallel/gspmd.py: the single-device step,
+   unchanged, on a batch of DTensors sharded over two ranks that share the
+   card over gloo; its jobs run last in phase 16's two-rank world): 17a
+   bench_scaling's SignNetGNN(32, 1, 4, 8, 2) on make_global(2), an eval
+   step then a train
+   step of the GSPMD step against the single-device step from one seeded
+   init, under deterministic algorithms: f64 loss, MAE and eval sums
+   within 1e-12 relative and every gradient, BN statistic and Adam moment
+   within 1e-10 of its tensor's largest (or of 1e-4 of its kind's
+   largest, 16b's bar); f32 loss, MAE and eval sums within 1e-5 relative
+   and the gradients' distance from the f64 single-device step within
+   twice the single-device f32 step's (median over tensors and worst
+   tensor), with the attention dropout on in f64 and off in f32 (the
+   card's bernoulli_ draws other masks in f64 than in f32); 17b the
+   flagship step (GIN 16x95, SignNet k = 8 with an 8-layer GIN phi, 128
+   graphs in 256-node tiles) under xla in f64 and under pallas_tile in
+   f32 by the same bars, with K1's launches (47 a rank per train step
+   and 24 per eval step, GSPMD and single-device alike, each rank running
+   the replicated aggregation); 17c the flagship's warm GSPMD step times
+   beside the single-device step's (host clock, steps in turns, median
+   and min-max: overhead, not scaling) and its first GSPMD train step's
+   collectives, each timed alone.
 
 Phase 1d holds K5 against its plain version over NaN-filled output memory
 (f32 and bf16 at bench_ops' shape N = 3072, D = 128; D = 95; N = 300;
@@ -313,11 +334,26 @@ class Phase:
         return False
 
 
+def _bytecode_cache():
+    """Python's bytecode cached under OUT_DIR, for this process and every
+    process it starts.  Where the environment turns the cache off
+    (PYTHONDONTWRITEBYTECODE), each new process compiles torch from its
+    sources again: beside an NVIDIA H100 80GB HBM3 (700.00 W) `import
+    torch` took 7.9-8.0 s and torch.distributed.tensor 4.1-5.0 s more, in
+    each of the ten or so processes the run starts."""
+    prefix = os.path.join(ROOT, OUT_DIR, "pycache")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+
+
 def _fail_without_checkout_or_card():
     if not os.path.isdir(os.path.join(ROOT, "signnet_basisnet_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository "
               "(signnet_basisnet_tpu_torch/ not found)", file=sys.stderr)
         sys.exit(2)
+    _bytecode_cache()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script measures the card "
@@ -377,21 +413,23 @@ def _interleaved_ms(steps, batch, repeats=5, window=10):
 def _profile_steps(step, batch, kernels, steps=3):
     """From torch.profiler over `steps` warm train steps: the device time
     and busy share per step, the device ops per step and each of `kernels`'
-    share of the device time."""
+    share of the device time.  The card's activity only: with the host's
+    ops traced too, reading the trace of 3 eager GIN steps took 5.2-5.6 s
+    against 1.1-2.1 for the same device time (NVIDIA H100 80GB HBM3,
+    700.00 W), and the host's tracing slowed the steps it measures."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step(batch, 1e-3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(steps):
             step(batch, 1e-3)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    # device work only: user-annotation ranges on the device timeline span
-    # kernels already counted
+    # device work only (user-annotation ranges on the device timeline
+    # would span kernels already counted)
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
@@ -917,9 +955,13 @@ def _phase_13(record, dev, reset_counts, launches):
     al_arrays, al_orders = with_orders(evd_graphs(al_gs, 64, True))
     zn_arrays, zn_orders = with_orders(evd_graphs(zn_gs, 32, True))
     for tag, label, make, arrays_13, orders_13 in (
-            ("alchemy", "13a Alchemy SignNetGNN 108 (8 phi, 8 rho, 16 "
-             "GINE), 64 graphs", signnet_gnn(alchemy_net), al_arrays,
-             al_orders),
+            # 8 of the net's 16 GINE layers: the CPU's f64 step at full
+            # depth costs more than the run's time allows beside phases 16
+            # and 17 (13b times the whole net)
+            ("alchemy", "13a Alchemy SignNetGNN 108 (8 phi, 8 rho, 8 of "
+             "16 GINE), 64 graphs", signnet_gnn(dict(alchemy_net,
+                                                     nl_gnn=8)),
+             al_arrays, al_orders),
             ("gine_zinc", "13a GINE-ZINC SignNetGNN 110 (8 phi, 1 rho, 6 "
              "GINE), 32 graphs", signnet_gnn(gine_net), zn_arrays,
              zn_orders),
@@ -1228,7 +1270,8 @@ def _phase_14(record, reset_counts, launches):
         no_launches("14a")
         record["filters_card_vs_cpu"] = out
 
-    with Phase("14b the three published rows (real grid, 1 image x 200 "
+    # 100 epochs (not 200): the run's time
+    with Phase("14b the three published rows (real grid, 1 image x 100 "
                "epochs, matmul_precision highest)"):
         real_dir = os.path.join(fdir, "2dgrid")
         os.makedirs(real_dir, exist_ok=True)
@@ -1237,7 +1280,7 @@ def _phase_14(record, reset_counts, launches):
         for tag, (argv, want_params) in FILTER_ROWS.items():
             args = parse(argv + [
                 "--mat_path", real, "--label_dir", real_dir, "--img_num",
-                "1", "--epochs", "200", "--scan_epochs", "100",
+                "1", "--epochs", "100", "--scan_epochs", "50",
                 "--matmul_precision", "highest", "--results_dir",
                 os.path.join(fdir, "results")])
             lines = []
@@ -1257,7 +1300,7 @@ def _phase_14(record, reset_counts, launches):
                 raise AssertionError(f"{tag}: PARAMETERS {params}, "
                                      f"results {res}")
             # the epochs apart: image 0's model, one loss per epoch read at
-            # the end; the host clock over epochs 101-200
+            # the end; the host clock over epochs 51-100
             with tf.matmul_precision("highest"):
                 p = tf.prepare(args, lambda m: None, torch.device("cuda"))
                 model = p.make_model(args.seed * 100003)
@@ -1267,13 +1310,13 @@ def _phase_14(record, reset_counts, launches):
                     model, opt, p.gb, p.x[:, :1], p.y[:, :1], p.mask,
                     p.kwargs)
                 losses = []
-                for e in range(200):
-                    if e == 100:
+                for e in range(100):
+                    if e == 50:
                         torch.cuda.synchronize()
                         t1 = time.time()
                     losses.append(step(None, None)[0])
                 torch.cuda.synchronize()
-                epoch_ms = (time.time() - t1) / 100 * 1e3
+                epoch_ms = (time.time() - t1) / 50 * 1e3
                 prof = _profile_steps(step, None, [], steps=5)
                 contraction_ms = None
                 if p.kwargs["projs"] is not None:
@@ -1286,7 +1329,7 @@ def _phase_14(record, reset_counts, launches):
                         contractions_2_to_1(P)
                         for P in p.kwargs["projs"].values()], iters=20)
             losses = torch.stack(losses).cpu().numpy()
-            l1, l100, l200 = (float(losses[i]) for i in (0, 99, 199))
+            l1, l50, l100 = (float(losses[i]) for i in (0, 49, 99))
             if contraction_ms is not None:
                 share = (contraction_ms * 1e3 / prof["device_us_per_step"]
                          if isinstance(prof, dict) else "not measured")
@@ -1294,17 +1337,17 @@ def _phase_14(record, reset_counts, launches):
                       f"{contraction_ms:.3f} ms an epoch (CUDA events), "
                       f"{share} of the epoch's device time", flush=True)
             print(f"  {tag}: PARAMETERS {params}; run() {run_s:.1f} s for 1 "
-                  f"image x 200 epochs (set-up included), results "
+                  f"image x 100 epochs (set-up included), results "
                   f"{res.tolist()}; epoch {epoch_ms:.2f} ms on the host "
-                  f"clock (epochs 101-200); loss at epochs 1 / 100 / 200 "
-                  f"{l1:.6g} / {l100:.6g} / {l200:.6g}; peak memory "
+                  f"clock (epochs 51-100); loss at epochs 1 / 50 / 100 "
+                  f"{l1:.6g} / {l50:.6g} / {l100:.6g}; peak memory "
                   f"{peak:.0f} MiB; profiler {prof}", flush=True)
-            if not (np.isfinite(losses).all() and l200 < l100 < l1):
-                raise AssertionError(f"{tag}: losses {l1}, {l100}, {l200}")
+            if not (np.isfinite(losses).all() and l100 < l50 < l1):
+                raise AssertionError(f"{tag}: losses {l1}, {l50}, {l100}")
             no_launches(tag)
             record[f"filters_{tag}"] = dict(
                 params=params, run_s=run_s, results=res.tolist(),
-                epoch_ms=epoch_ms, loss_1_100_200=(l1, l100, l200),
+                epoch_ms=epoch_ms, loss_1_50_100=(l1, l50, l100),
                 contraction_ms=contraction_ms,
                 peak_mib=peak, profile=prof)
             del p, model, opt, step
@@ -1325,8 +1368,7 @@ def _phase_14(record, reset_counts, launches):
                 tf, parse(argv + common))
             got = {}
             for epochs, vm, dev in (("1", "1", "cuda"), ("1", "2", "cuda"),
-                                    ("4", "1", "cuda"), ("4", "2", "cuda"),
-                                    ("4", "1", "cpu")):
+                                    ("4", "1", "cuda"), ("4", "2", "cuda")):
                 torch.cuda.synchronize()
                 t0 = time.time()
                 got[epochs, vm, dev] = tf.run(parse(argv + common + [
@@ -1339,11 +1381,10 @@ def _phase_14(record, reset_counts, launches):
             # 1 epoch: the initial loss, before Adam has moved a weight
             first = rel(got["1", "2", "cuda"], got["1", "1", "cuda"])
             gap = rel(got["4", "2", "cuda"], got["4", "1", "cuda"])
-            spread = rel(got["4", "1", "cuda"], got["4", "1", "cpu"])
             out[tag] = dict(f64_first_step=f64_first,
                             f64_first_step_grads=f64_grads,
                             f64_gap=f64_gap, first_epoch_gap=first, gap=gap,
-                            cpu_vs_card_serial=spread, held_2e3=gap <= 2e-3,
+                            held_2e3=gap <= 2e-3,
                             runs={"_".join(k): (
                                 v if isinstance(v, float) else v.tolist())
                                 for k, v in got.items()})
@@ -1357,9 +1398,7 @@ def _phase_14(record, reset_counts, launches):
                   f"{got['4', '2', 'cuda'].tolist()} "
                   f"({got['4', '2', 'cuda', 's']:.1f} s): {gap:.2e} apart "
                   f"(rtol 2e-3 {'holds' if gap <= 2e-3 else 'does not hold'}"
-                  f"); the serial run on the CPU "
-                  f"{got['4', '1', 'cpu'].tolist()}, {spread:.2e} from the "
-                  f"card's", flush=True)
+                  f")", flush=True)
             finite = all(np.isfinite(v).all() for v in got.values()
                          if not isinstance(v, float))
             if max(f64_first, f64_grads) > 1e-9 or first > 1e-4 or not finite:
@@ -1907,7 +1946,8 @@ def _p16_grad_errors(got, ref, exact):
 
 
 def _phase_16(record):
-    """Phase 16: the parallel paths on the card (module docstring)."""
+    """Phase 16: the parallel paths on the card (module docstring).
+    Returns phase 17's jobs' results, which its two-rank world runs."""
     import numpy as np
     import torch
     from signnet_basisnet_tpu_torch import bench_scaling
@@ -2008,12 +2048,16 @@ def _phase_16(record):
             "train.mp", "2", "train.epochs", "2", "data.synth_train", "384",
             "data.synth_eval", "128", "train.print_epoch_interval", "1",
             "out_dir", ""]))
+        # phase 17's GSPMD jobs run last in the same world (one start)
+        own = dp2_jobs + mp_jobs + [tz] + cpu_jobs
+        p17_jobs = _p17_jobs()
         t0 = time.time()
-        w2 = spawn_ranks(_p16_world, 2, (dp2_jobs + mp_jobs + [tz]
-                                          + cpu_jobs,),
-                         device="cuda", timeout=P16_TIMEOUT)
-        print(f"  the two-rank world (gloo, one card): "
-              f"{time.time() - t0:.1f} s", flush=True)
+        w2 = spawn_ranks(_p16_world, 2, (own + p17_jobs,), device="cuda",
+                         timeout=P16_TIMEOUT)
+        p17_runs = [[r[len(own) + i] for r in w2]
+                    for i in range(len(p17_jobs))]
+        print(f"  the two-rank world (gloo, one card), phase 17's jobs "
+              f"included: {time.time() - t0:.1f} s", flush=True)
         for tag, runs, n_micro in (("world 1 (NCCL), 2 microbatches",
                                     [w1[0:2]], 2),
                                    ("world 2 (gloo, one card), 1 "
@@ -2174,8 +2218,347 @@ def _phase_16(record):
             raise AssertionError(f"16c train_zinc mp 2: {hist}, "
                                  f"{tz0['launches']}")
         rec["train_zinc_mp2_losses"] = hist
-        rec["bench_scaling"] = bench_scaling.main(["--reps", "3"])
+        rec["bench_scaling"] = bench_scaling.main(["--reps", "1"])
+    return p17_runs
 
+
+# ------------------------------------------------------------- phase 17
+# GSPMD (parallel/gspmd.py): the single-device step, unchanged, on a batch
+# of DTensors sharded over two ranks that share the card over gloo (NCCL
+# refuses two ranks on one card, phase 16a).  The _p17_* functions run in
+# the ranks, through _p16_world.
+
+P17_SGNN = dict(n_hid=32, n_out=1, nl_signnet=4, nl_gnn=8, nl_rho=2)
+P17_WINDOWS = 2
+
+
+def _p17_model(net, dev, dtype, dropout=0.1):
+    """(model, predict) from one seeded init: bench_scaling's SignNetGNN
+    (attention dropout `dropout` in its rho), or the flagship config's
+    net."""
+    from signnet_basisnet_tpu_torch.models import (SignNetGNN,
+                                                   set_attention_dropout)
+    from signnet_basisnet_tpu_torch.training import (make_module_predict,
+                                                     make_zinc_predict)
+    if net == "sgnn":
+        model = SignNetGNN(**P17_SGNN).to(dev, dtype)
+        set_attention_dropout(model, dropout)
+        return model, make_module_predict(model)
+    model, lap = _p16_model(CONFIG, dev, dtype)
+    return model, make_zinc_predict(model, lap)
+
+
+def _p17_record(model, opt, metrics, sums, launches):
+    """A step's numbers, every tensor full and in f64 on the host."""
+    full = lambda t: (t.full_tensor() if hasattr(t, "full_tensor")
+                      else t).detach().double().cpu().numpy()
+    return {"loss": float(metrics["loss"]), "mae": float(metrics["mae"]),
+            "eval": {k: float(v) for k, v in sums.items()},
+            "launches": launches,
+            "grads": {n: full(p.grad) for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "buffers": {n: full(b) for n, b in model.named_buffers()},
+            "adam": {f"{n}.{k}": full(opt.state[p][k])
+                     for n, p in model.named_parameters()
+                     if p in opt.state for k in ("exp_avg", "exp_avg_sq")}}
+
+
+class _P17Collectives:
+    """Counts the collectives DTensor issues (the functional collectives
+    its redistributions call) while the block runs, each timed alone as
+    16b times them: a synchronize before it, and after it has ended."""
+
+    NAMES = ("all_reduce", "all_gather_tensor", "all_gather_single",
+             "reduce_scatter_tensor", "reduce_scatter_single",
+             "all_to_all_single", "all_gather_inplace")
+
+    def __init__(self):
+        self.made, self.ms = {}, 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.distributed._functional_collectives as funcol
+        self.saved = {n: getattr(funcol, n) for n in self.NAMES
+                      if hasattr(funcol, n)}
+        depth = [0]
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                if depth[0]:
+                    return fn(*args, **kwargs)
+                depth[0] += 1
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    if isinstance(out, funcol.AsyncCollectiveTensor):
+                        out = out.wait()
+                    elif isinstance(out, torch.Tensor):
+                        out = funcol.wait_tensor(out)
+                    torch.cuda.synchronize()
+                    self.ms += (time.perf_counter() - t0) * 1e3
+                    self.made[name] = self.made.get(name, 0) + 1
+                    return out
+                finally:
+                    depth[0] -= 1
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(funcol, n, timed(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed._functional_collectives as funcol
+        for n, fn in self.saved.items():
+            setattr(funcol, n, fn)
+        return False
+
+
+def _p17_steps(rank, dev, spec):
+    """An eval step, then a train step, from one seeded init, under
+    deterministic algorithms: the single-device step on rank 0 and, unless
+    spec["single_only"], the GSPMD step (build_gspmd_steps over both
+    ranks) on every rank, with each one's K1-K5 launches.  With
+    spec["time"], the GSPMD train step's collectives are counted and timed
+    alone, and P17_WINDOWS turns of one warm step follow (rank 0's
+    single-device step while rank 1 waits, then the GSPMD step on both).
+    The job's seconds are recorded."""
+    import torch
+    import torch.distributed as dist
+    from signnet_basisnet_tpu_torch.graph import from_arrays
+    from signnet_basisnet_tpu_torch.graph import segment as seg
+    from signnet_basisnet_tpu_torch.parallel import (build_gspmd_steps,
+                                                     make_mesh)
+    from signnet_basisnet_tpu_torch.training import adam, build_steps
+    dtype = getattr(torch, spec["dtype"])
+    seg.set_agg_backend(spec["backend"])
+    gb = from_arrays(spec["arrays"]).to(dev).cast_floats(dtype)
+    mesh = make_mesh(dp=1, mp=dist.get_world_size(), device_type=dev.type)
+    out, steps = {}, {}
+    t_job = time.time()
+    try:
+        for how in ("single",) if spec.get("single_only") else (
+                "single", "gspmd"):
+            if how == "single" and rank != 0:
+                continue
+            model, predict = _p17_model(spec["net"], dev, dtype,
+                                        spec.get("dropout", 0.1))
+            opt = adam(model.parameters())
+            train, ev = (build_steps(model, predict, opt) if how == "single"
+                         else build_gspmd_steps(model, predict, opt, mesh,
+                                                gb))
+            with _deterministic():
+                _reset_counts()
+                sums = ev(gb)
+                torch.cuda.synchronize()
+                ev_l = _counts()
+                _reset_counts()
+                with _P17Collectives() as coll:
+                    t0 = time.perf_counter()
+                    m = train(gb, P16_LR)
+                    torch.cuda.synchronize()
+                    whole = (time.perf_counter() - t0) * 1e3
+                rec = _p17_record(model, opt, m, sums,
+                                  {"eval": ev_l, "train": _counts()})
+            out[how] = rec if rank == 0 else {
+                k: rec[k] for k in ("loss", "mae", "eval", "launches")}
+            if how == "gspmd" and spec.get("time"):
+                out["collectives"] = {"made": coll.made, "ms": coll.ms,
+                                      "step_ms": whole}
+            steps[how] = train
+        if spec.get("time"):
+            ms = {"single": [], "gspmd": []}
+            for _ in range(P17_WINDOWS):
+                for how in ("single", "gspmd"):
+                    dist.barrier()
+                    if how == "gspmd" or rank == 0:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        steps[how](gb, P16_LR)
+                        torch.cuda.synchronize()
+                        ms[how].append((time.perf_counter() - t0) * 1e3)
+            out["ms"] = ms
+    finally:
+        seg.set_agg_backend("xla")
+    out["s"] = time.time() - t_job
+    return out
+
+
+def _p17_f64_errors(got, want):
+    """Per gradient, BN statistic and Adam moment: |got - want| over the
+    larger of the tensor's largest |want| and 1e-4 of the largest of its
+    kind (16b's bar: a tensor that is 0 in exact arithmetic keeps only
+    f64 rounding)."""
+    import numpy as np
+    errs = {}
+    for kind in ("grads", "buffers", "adam"):
+        top = max(float(np.abs(v).max()) for v in want[kind].values())
+        for n, v in want[kind].items():
+            scale = max(float(np.abs(v).max()), 1e-4 * top, 1e-300)
+            errs[f"{kind} {n}"] = float(np.abs(got[kind][n] - v).max()) \
+                / scale
+    return errs
+
+
+def _p17_check(tag, runs, f64_ref, record):
+    """Hold a GSPMD run to its single-device step: in f64 the loss, MAE and
+    eval sums 1e-12 relative and `_p17_f64_errors` 1e-10; in f32 the loss,
+    MAE and eval sums 1e-5 relative of the single-device f32 step's, and
+    the gradients' distance from the f64 single-device step (`f64_ref`,
+    from the same init and dropout), each over its tensor's largest
+    (`_p16_grad_errors`), within twice the single-device f32 step's: the
+    median over tensors and the worst tensor (phase 16b's form).  Both
+    ranks' GSPMD metrics must agree."""
+    import numpy as np
+    s, g = runs[0]["single"], runs[0]["gspmd"]
+    for r in runs[1:]:
+        if (r["gspmd"]["loss"], r["gspmd"]["eval"]) != (g["loss"],
+                                                        g["eval"]):
+            raise AssertionError(f"{tag}: the ranks' GSPMD steps differ")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-300)
+    metrics = [rel(g["loss"], s["loss"]), rel(g["mae"], s["mae"])] + [
+        rel(g["eval"][k], s["eval"][k]) for k in ("loss_sum", "mae_sum", "n")]
+    res = dict(loss=(g["loss"], s["loss"]), metrics_worst=max(metrics),
+               launches={"gspmd": g["launches"], "single": s["launches"]})
+    if f64_ref is None:
+        errs = _p17_f64_errors(g, s)
+        worst = max(errs, key=errs.get)
+        res.update(worst=errs[worst], worst_at=worst)
+        print(f"  {tag}: loss {g['loss']:.15g} vs single-device "
+              f"{s['loss']:.15g}; loss, MAE and eval sums within "
+              f"{max(metrics):.2e} relative (bar 1e-12); every gradient, BN "
+              f"statistic and Adam moment within {errs[worst]:.2e} (bar "
+              f"1e-10; worst {worst})", flush=True)
+        ok = max(metrics) <= 1e-12 and errs[worst] <= 1e-10
+    else:
+        errs = _p16_grad_errors(g["grads"], s["grads"], f64_ref["grads"])
+        got = np.array([v[0] for v in errs.values()])
+        own = np.array([v[1] for v in errs.values()])
+        med = float(np.median(got)) / max(float(np.median(own)), 1e-30)
+        gross = float(got.max()) / max(float(own.max()), 1e-30)
+        per = {n: v[0] / max(v[1], 1e-30) for n, v in errs.items()}
+        top = max(per, key=per.get)
+        res.update(median_x=med, worst_x=gross, per_tensor_top=(top,
+                                                                per[top]))
+        print(f"  {tag}: loss {g['loss']:.8g} vs single-device "
+              f"{s['loss']:.8g}; loss, MAE and eval sums within "
+              f"{max(metrics):.2e} relative (bar 1e-5); the gradients' "
+              f"distance from the f64 single-device step, of each tensor's "
+              f"largest: median {float(np.median(got)):.2e} ({med:.2f}x the "
+              f"single-device f32 step's {float(np.median(own)):.2e}), "
+              f"worst {float(got.max()):.2e} ({gross:.2f}x its "
+              f"{float(own.max()):.2e}; bars 2x); the largest ratio of one "
+              f"tensor {per[top]:.2f} at {top}", flush=True)
+        ok = max(metrics) <= 1e-5 and med <= 2 and gross <= 2
+    record[tag] = res
+    if not ok:
+        raise AssertionError(f"{tag}: the GSPMD step departs from the "
+                             f"single-device step ({res})")
+
+
+def _p17_jobs():
+    """Phase 17's (function name, spec) jobs for its two ranks."""
+    from signnet_basisnet_tpu_torch.bench_scaling import make_global
+    from signnet_basisnet_tpu_torch.data import (add_lap_pe, choose_budgets,
+                                                 pack_batches,
+                                                 synthetic_zinc)
+    sgnn = make_global(2)
+    gs = synthetic_zinc(128, 0, 0, seed=0)["train"]
+    add_lap_pe(gs, 8)
+    nb, eb, gc = choose_budgets(gs, 128, tile=256)
+    flag = pack_batches(gs, nb, eb, gc, k=8, tile=256)[0]
+    # 17a: f64 with the attention dropout on (the GSPMD step must draw the
+    # single-device masks); f32 with it off, against an f64 single-device
+    # step with it off: the card's bernoulli_ draws other masks in f64
+    # than in f32, so an f32 step with dropout has no f64 reference
+    sgnn_job = lambda **kw: ("_p17_steps", dict(net="sgnn", arrays=sgnn,
+                                                backend="xla", **kw))
+    jobs = [sgnn_job(dtype="float64", dropout=0.1),
+            sgnn_job(dtype="float64", dropout=0.0, single_only=True),
+            sgnn_job(dtype="float32", dropout=0.0)]
+    # 17b: the f32 rule on the main path (pallas_tile); xla in f64
+    jobs += [("_p17_steps", dict(net="flagship", arrays=flag, dtype=dt,
+                                 backend=b, time=b == "pallas_tile"))
+             for dt, b in (("float64", "xla"), ("float32", "pallas_tile"))]
+    return jobs
+
+
+def _phase_17(record, runs=None):
+    """Phase 17: GSPMD on the card (module docstring).  `runs`: each job
+    of `_p17_jobs()`'s results on both ranks, from phase 16's two-rank
+    world, which runs them after its own; without them (the phase run
+    alone) it starts a world of its own."""
+    import numpy as np
+    from signnet_basisnet_tpu_torch.parallel.mesh import spawn_ranks
+    from signnet_basisnet_tpu_torch.utils import card_label
+    rec = record.setdefault("phase17", {})
+    jobs = _p17_jobs()
+    sgnn, flag = jobs[0][1]["arrays"], jobs[3][1]["arrays"]
+    with Phase("17a GSPMD vs single-device (SignNetGNN 32, 2 ranks)"):
+        if runs is None:
+            t0 = time.time()
+            w = spawn_ranks(_p16_world, 2, (jobs,), device="cuda",
+                            backend="gloo", timeout=P16_TIMEOUT)
+            runs = [[r[i] for r in w] for i in range(len(jobs))]
+            print(f"  the two-rank world (gloo, one card): "
+                  f"{time.time() - t0:.1f} s", flush=True)
+        print("  the jobs' seconds (rank 0): " + ", ".join(
+            f"{s['net']} {s['dtype']} {s['backend']} {r[0]['s']:.1f}"
+            for (_, s), r in zip(jobs, runs)), flush=True)
+        print(f"  bench_scaling's SignNetGNN(32, 1, 4, 8, 2) on "
+              f"make_global(2): N = {sgnn['node_mask'].shape[0]}, E = "
+              f"{sgnn['edge_mask'].shape[0]}; attention dropout 0.1 in "
+              f"f64, 0 in f32", flush=True)
+        _p17_check("17a f64", runs[0], None, rec)
+        _p17_check("17a f32", runs[2], runs[1][0]["single"], rec)
+    with Phase("17b GSPMD vs single-device (flagship GIN 16x95)"):
+        print(f"  the flagship step: N = {flag['node_mask'].shape[0]}, E = "
+              f"{flag['edge_mask'].shape[0]}, 256-node tiles", flush=True)
+        _p17_check("17b xla f64", runs[3], None, rec)
+        _p17_check("17b pallas_tile f32", runs[4], runs[3][0]["single"],
+                   rec)
+        zeros = {k: 0 for k in P16_DP_KERNELS}
+        for i, backend in ((3, "xla"), (4, "pallas_tile")):
+            k1 = (47, 24) if backend == "pallas_tile" else (0, 0)
+            want = {"train": dict(zeros, K1=k1[0]),
+                    "eval": dict(zeros, K1=k1[1])}
+            for rank, r in enumerate(runs[i]):
+                for how, step in r.items():
+                    if how in ("single", "gspmd") and (step["launches"]
+                                                      != want):
+                        raise AssertionError(
+                            f"17b {backend} rank {rank} {how}: launches "
+                            f"{step['launches']}, expected {want}")
+        print(f"  K1 launches under pallas_tile, each rank's GSPMD step: "
+              f"{runs[4][0]['gspmd']['launches']['train']['K1']} a train "
+              f"step, {runs[4][0]['gspmd']['launches']['eval']['K1']} an "
+              f"eval step (rank 1: "
+              f"{runs[4][1]['gspmd']['launches']['train']['K1']}, "
+              f"{runs[4][1]['gspmd']['launches']['eval']['K1']}); no K2-K5",
+              flush=True)
+    with Phase("17c GSPMD step times and collectives"):
+        card = card_label()
+
+        def spread(v):
+            return (f"median {float(np.median(v)):.2f} (min {min(v):.2f}, "
+                    f"max {max(v):.2f})")
+        r0, r1 = runs[4]
+        single = r0["ms"]["single"]
+        gspmd = [max(a, b) for a, b in zip(r0["ms"]["gspmd"],
+                                           r1["ms"]["gspmd"])]
+        coll = [r0["collectives"], r1["collectives"]]
+        print(f"  17c flagship pallas_tile f32 ({card}; host clock, warm, "
+              f"{P17_WINDOWS} steps of each in turns; two ranks sharing the "
+              f"card over gloo: overhead, not scaling; bench_scaling times "
+              f"the SignNetGNN): GSPMD {spread(gspmd)} ms a step, "
+              f"single-device {spread(single)}; the first GSPMD train "
+              f"step's collectives (each with a synchronize before and "
+              f"after, ranks 0 / 1): " + " / ".join(
+                  f"{sum(c['made'].values())} {c['made']} taking "
+                  f"{c['ms']:.2f} ms of {c['step_ms']:.2f}" for c in coll),
+              flush=True)
+        rec["17c"] = dict(gspmd_ms=gspmd, single_ms=single,
+                          collectives=coll)
 
 def main():
     _fail_without_checkout_or_card()
@@ -3118,14 +3501,15 @@ def main():
         # the warm step on one fixed batch (no input pipeline), f32 and
         # bf16 compute taking turns window by window;
         # median and spread over the windows, then where each one's device
-        # time goes (torch.profiler)
+        # time goes (torch.profiler); 3 windows (not 5), as 4b
         bf16_model = gnn_model("GIN", **net).to(dev)
         bf16_step, _ = build_steps(
             bf16_model, make_zinc_predict(bf16_model, "sign_inv",
                                           compute_dtype=torch.bfloat16),
             adam(bf16_model.parameters()))
         f32_step, batch = card_step
-        ms = _interleaved_ms({"f32": f32_step, "bf16": bf16_step}, batch)
+        ms = _interleaved_ms({"f32": f32_step, "bf16": bf16_step}, batch,
+                             repeats=3)
         for name, v in ms.items():
             print(f"  warm {name} step (host clock, {len(v)} windows of 10 "
                   f"steps): median {float(np.median(v)):.2f} ms, min "
@@ -3575,7 +3959,8 @@ def main():
                     raise AssertionError(f"{label}: {n} launches per "
                                          f"replay {cc[n]}, expected {v}")
             ms = bench.interleaved_ms({"eager": plain_eager,
-                                       "captured": captured}, gbs)
+                                       "captured": captured}, gbs,
+                                      repeats=3)
             for n, v in ms.items():
                 print(f"  {n} (host clock, {len(v)} windows of 10 steps, "
                       f"{card}): median {float(np.median(v)):.2f} ms, min "
@@ -3603,11 +3988,13 @@ def main():
     # ---------------------------------------------------------------- 8
     with Phase("8 the benches: bench --mode auto, bench_roofline"):
         # the port's bench.py and bench_roofline.py entry points, each in
-        # its own process, as a user runs them
+        # its own process, as a user runs them; bench with 2 windows of
+        # each mode's eager and captured steps (not 5) and bench_roofline
+        # with loops of 10 replays (not 30): the run's time
         for mod, argv, limit in (("bench", ["--mode", "auto", "--trace",
-                                            os.path.join(OUT_DIR, "trace")],
-                                  420),
-                                 ("bench_roofline", [], 300)):
+                                            os.path.join(OUT_DIR, "trace"),
+                                            "--windows", "2"], 420),
+                                 ("bench_roofline", ["--reps", "10"], 300)):
             proc = subprocess.run(
                 [sys.executable, "-m", f"signnet_basisnet_tpu_torch.{mod}",
                  *argv], capture_output=True, text=True, timeout=limit)
@@ -3698,10 +4085,11 @@ def main():
         # that layer's A and B gradients an order of magnitude beyond the
         # CPU's f32 error: on the kernel path, and in some runs on the
         # card's plain path (no kernels) too
-        # 8 of the net's 16 layers (the phi whole): the CPU's f64 step at
-        # full depth costs more than the run's time allows beside phase 16
+        # 4 of the net's 16 layers (the phi whole): the CPU's f64 step at
+        # full depth costs more than the run's time allows beside phases
+        # 16 and 17
         _, record["masked_gatedgcn_card_vs_cpu"] = _check_step_card_vs_cpu(
-            "GatedGCN", dict(net_params(gmcfg, None), n_layers=8), arrays_m,
+            "GatedGCN", dict(net_params(gmcfg, None), n_layers=4), arrays_m,
             lambda model: build_steps(
                 model, make_zinc_predict(model, "sign_inv"),
                 adam(model.parameters()))[0],
@@ -3880,8 +4268,8 @@ def main():
             seg.set_agg_backend(cfg.data.agg_backend)
             _reset_counts()
             with k1_widths() as seen:
-                # 8 of the net's layers (the phi whole), as 10a: the CPU's
-                # f64 step at full depth costs more than the run allows
+                # 8 of the net's layers (the phi whole): the CPU's f64
+                # step at full depth costs more than the run allows
                 card_step, info = _check_step_card_vs_cpu(
                     m.model, dict(net_params(cfg, gs_pna), n_layers=8),
                     arrays,
@@ -3949,8 +4337,8 @@ def main():
     # --------------------------------------------------------------- 15
     _phase_15(record, dev, _reset_counts, _counts, run_path, arrays)
 
-    # --------------------------------------------------------------- 16
-    _phase_16(record)
+    # ----------------------------------------------------------- 16, 17
+    _phase_17(record, _phase_16(record))
 
     kernels = [kern, kern2, kern3, kern4, kern5]
     record["kernels"] = kernels

@@ -4,6 +4,7 @@ step, eager and captured in a CUDA graph.
 Counterpart of the JAX package's bench.py, run from the repository root:
 
     python -m signnet_basisnet_tpu_torch.bench [--mode M] [--trace DIR]
+        [--windows 5]
 
 `--mode` takes the place of the JAX script's BENCH_MODE (default `auto`).
 The step, the batches and the timing are the JAX script's: GINNet 16x95
@@ -25,7 +26,8 @@ last loss's value.  Edges are the batches' real (unmasked) edges.
   through the tile-local SpMM kernel (K1), `tile_dense*` through the block
   adjacency; `*bf16` compute in bf16 with f32 master weights.  For each,
   the eager step of the same mode and the captured one also run in
-  interleaved windows (host clock, ms per step: median, min, max).
+  `--windows` interleaved windows of 10 steps (host clock, ms per step:
+  median, min, max).
 - `auto`: `flat` and the six captured modes; reports the fastest captured
   mode.  Each mode's edges/s goes to stderr.
 - `dense`: the eager step on dense block batches (graph/dense.py: each
@@ -230,7 +232,7 @@ def bench_dense(batches, device, net=NET, steps=STEPS, warmup=WARMUP):
 
 
 def bench_captured(batches, device, agg_backend="xla", compute_dtype=None,
-                   trace_dir=None):
+                   trace_dir=None, windows=5):
     """One captured mode: the best timed loop of the captured step, then
     the eager and the captured step of the mode in interleaved windows."""
     with backends(agg_backend, "xla"):
@@ -239,7 +241,8 @@ def bench_captured(batches, device, agg_backend="xla", compute_dtype=None,
         step = captured_step(NET, gbs[0], compute_dtype)
         rec = time_steps(step, gbs, host)
         eager = eager_step(NET, device, compute_dtype)
-        ms = interleaved_ms({"eager": eager, "captured": step}, gbs)
+        ms = interleaved_ms({"eager": eager, "captured": step}, gbs,
+                            repeats=windows)
         rec["step_ms_windows"] = {k: spread(v) for k, v in ms.items()}
         edges = float(np.mean([b["edge_mask"].sum() for b in batches]))
         rec["eager_edges_per_s"] = (
@@ -353,6 +356,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of 3 eager and 3 "
                          "captured steps of each captured mode into DIR")
+    ap.add_argument("--windows", type=int, default=5,
+                    help="interleaved windows of 10 eager and 10 captured "
+                         "steps per captured mode")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: bench measures the card")
@@ -381,7 +387,7 @@ def main(argv=None) -> dict:
             runs[mode] = bench_captured(
                 tiled if tile else flat, dev, agg, dtype,
                 trace_dir=(os.path.join(args.trace, mode) if args.trace
-                           else None))
+                           else None), windows=args.windows)
             log_memory(say, dev, prefix=f"# {mode} ")
         eps = {k: v["edges_per_s"] for k, v in runs.items()}
         say("# " + " ".join(f"{k}={v:.0f}" for k, v in eps.items())
@@ -390,7 +396,8 @@ def main(argv=None) -> dict:
                   else args.mode)
         for mode in todo:
             w = runs[mode]["step_ms_windows"]
-            print(f"{mode}: step ms over 5 interleaved windows of 10 "
+            print(f"{mode}: step ms over {args.windows} interleaved "
+                  f"windows of 10 "
                   f"(host clock): eager median {w['eager']['median']:.2f} "
                   f"(min {w['eager']['min']:.2f}, max "
                   f"{w['eager']['max']:.2f}), captured median "

@@ -3,15 +3,16 @@
 Counterpart of the JAX package's bench_roofline.py, run from the
 repository root:
 
-    python -m signnet_basisnet_tpu_torch.bench_roofline
+    python -m signnet_basisnet_tpu_torch.bench_roofline [--reps 30]
 
 For the JAX script's batch sizes (128 graphs, the reference protocol's
 batch, and 2048) it packs one flat synthetic ZINC batch, captures the
 flagship train step (bench.NET: GINNet 16x95 + GINDeepSigns k = 8, Adam,
-`xla` aggregation, f32) in a CUDA graph, times 30 replays (best of 3, each
-ended by a fetch of the loss's value) and divides an analytic count of the
-step's FLOPs and bytes by the card's peaks.  `analytic_cost` is a copy of
-the JAX script's (the same model, the same counting): every matmul as
+`xla` aggregation, f32) in a CUDA graph, times `--reps` replays (default
+30; best of 3 loops, each ended by a fetch of the loss's value) and
+divides an analytic count of the step's FLOPs and bytes by the card's
+peaks.  `analytic_cost` is a copy of the JAX script's (the same model, the
+same counting): every matmul as
 2*m*n*k, the aggregations' adds, backward as twice the forward matmuls plus
 one more aggregation pass, Adam as 12 FLOPs a parameter; bytes as a lower
 bound under perfect fusion.  Real traffic is at least that, so a share
@@ -29,6 +30,7 @@ limit.  It measures the card: without one it raises.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 
@@ -122,7 +124,7 @@ def build(batch_graphs, seed=0):
     return pack_batches(train, nb, eb, gc, k=K)[0]
 
 
-def roofline(batch_graphs, device):
+def roofline(batch_graphs, device, reps=REPS):
     """The captured step's time and its shares of the card's peaks at one
     batch size."""
     arrays = build(batch_graphs)
@@ -137,10 +139,10 @@ def roofline(batch_graphs, device):
         best = float("inf")
         for _ in range(3):
             with timed() as t:
-                for _ in range(REPS):
+                for _ in range(reps):
                     m = step(gb, bench.LR)
                 float(m["loss"])
-            best = min(best, t["seconds"] / REPS)
+            best = min(best, t["seconds"] / reps)
     N, E, G = (arrays[k].shape[0] for k in ("node_mask", "edge_mask", "y"))
     flops, bytes_lb = analytic_cost(N, E, G, P)
     t_compute = flops / PEAK_F32_FLOP_PER_S
@@ -158,8 +160,10 @@ def roofline(batch_graphs, device):
 
 
 def main(argv=None) -> dict:
-    if argv:
-        raise SystemExit(f"bench_roofline takes no arguments, got {argv}")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=REPS,
+                    help="replays in each of the 3 timed loops")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: bench_roofline measures the card")
     dev = torch.device("cuda")
@@ -171,7 +175,7 @@ def main(argv=None) -> dict:
     out = {"device": label}
     try:
         for bg in BATCH_SIZES:
-            r = roofline(bg, dev)
+            r = roofline(bg, dev, args.reps)
             print(f"batch={bg:5d} graphs  N_pad={r['num_nodes']} "
                   f"E_pad={r['num_edges']} G_pad={r['num_graphs']} "
                   f"real_edges={r['real_edges']:.0f} params={r['params']}")

@@ -14,9 +14,13 @@
   step.  The halo
   H (rows a rank sends each peer), the rows and bytes one exchange of the
   32-wide node features moves a rank, and ms a step.
-- GSPMD: refused (parallel/gspmd.py, ROADMAP.md item 26).
+- GSPMD (parallel/gspmd.py), weak scaling as the JAX script runs it: the
+  DP net's step, unchanged, on `make_global(world)` (world microbatches'
+  graphs in one batch) with its node and edge axes sharded over a ("dp",
+  "mp") mesh of dp = world: ms a step and microbatches a second.
 
-Ranks are processes that `parallel.mesh.spawn_ranks` starts, one a rank.
+Ranks are processes that `parallel.mesh.spawn_ranks` starts, one a rank;
+a world of each size starts once and runs the three sections in turn.
 Where the host has a card for every rank they talk over NCCL, and the
 world size measures scaling; a world of up to two ranks a card shares the
 cards over gloo, and then measures the overhead of the parallel step
@@ -38,8 +42,9 @@ import torch
 
 from .graph import batch_np, from_arrays
 from .models import SignNetGNN, gnn_model
-from .parallel import (build_dp_steps, build_mp_steps, device_arrays_mp,
-                       partition_batch_mp, shard_arrays_mp)
+from .parallel import (build_dp_steps, build_gspmd_steps, build_mp_steps,
+                       device_arrays_mp, make_mesh, partition_batch_mp,
+                       shard_arrays_mp)
 from .parallel.mesh import spawn_ranks
 from .spectral import full_evd_np
 from .training import (adam, build_steps, make_module_predict,
@@ -108,15 +113,32 @@ def _mp_net():
                      phi_out_dim=4, batch_norm=True, dropout=0.0)
 
 
+def _dp_net():
+    return SignNetGNN(n_hid=32, n_out=1, nl_signnet=4, nl_gnn=8, nl_rho=2)
+
+
 def dp_rank(rank, dev, reps):
     """One rank of the weak-scaling DP run: ms a step on its fixed
     microbatch."""
-    model = SignNetGNN(n_hid=32, n_out=1, nl_signnet=4, nl_gnn=8,
-                       nl_rho=2).to(dev)
+    model = _dp_net().to(dev)
     stack = [from_arrays(make_micro(rank)).to(dev)]
     train, _ = build_dp_steps(model, make_module_predict(model),
                               adam(model.parameters()))
     return _ms_per_step(lambda: train(stack, LR, 0), reps, dev)
+
+
+def gspmd_rank(rank, dev, reps):
+    """One rank of the weak-scaling GSPMD run: ms a step on the global
+    batch of the world's microbatches, sharded over "dp"."""
+    world = torch.distributed.get_world_size()
+    model = _dp_net().to(dev)
+    gb = from_arrays(make_global(world)).to(dev)
+    train, _ = build_gspmd_steps(model, make_module_predict(model),
+                                 adam(model.parameters()),
+                                 make_mesh(dp=world, mp=1,
+                                           device_type=dev.type), gb,
+                                 axis="dp")
+    return _ms_per_step(lambda: train(gb, LR), reps, dev)
 
 
 def mp_rank(rank, dev, reps):
@@ -140,6 +162,13 @@ def _mp_single(dev, reps):
 
 
 WORLDS = (1, 2, 4, 8)
+SECTIONS = {"dp": dp_rank, "gspmd": gspmd_rank, "mp_halo": mp_rank}
+
+
+def world_rank(rank, dev, reps, sections):
+    """One rank of a world: each named section's run in turn, so that a
+    world starts once for all of them."""
+    return [SECTIONS[name](rank, dev, reps) for name in sections]
 
 
 def _plan(world: int, device: torch.device):
@@ -163,59 +192,57 @@ def main(argv=None):
     device = card_or_cpu(args.device)
     card = card_label() if device.type == "cuda" else "cpu"
     print(f"device: {card}", flush=True)
-    results = {"device": card, "dp": {}, "mp_halo": {},
-               "gspmd": "refused (ROADMAP.md item 26)"}
+    results = {"device": card, "dp": {}, "gspmd": {}, "mp_halo": {}}
 
+    # mp 1 is the single-device step, in this process
+    ms = _mp_single(device, args.reps)
+    results["mp_halo"][1] = {"ms": ms}
+    print(f"mp 1 (single device): {ms:8.2f} ms/step", flush=True)
     for w in WORLDS:
+        sections = ["dp", "gspmd"] + (["mp_halo"] if w > 1 else [])
         plan = _plan(w, device)
         if plan is None:
-            print(f"dp world {w}: skipped (too many ranks)", flush=True)
+            for name in sections:
+                print(f"{'mp' if name == 'mp_halo' else name + ' world'} "
+                      f"{w}: skipped (too many ranks)", flush=True)
             continue
         backend, label = plan
-        ms = spawn_ranks(dp_rank, w, (args.reps,), device=device.type,
-                         backend=backend)
-        results["dp"][w] = {"ms": max(ms), "backend": backend,
-                            "label": label}
-        print(f"dp world {w} ({backend}, {label}): {max(ms):8.2f} ms/step "
-              f"({w / max(ms) * 1e3:.2f} microbatches/s)", flush=True)
+        runs = spawn_ranks(world_rank, w, (args.reps, sections),
+                           device=device.type, backend=backend)
+        for i, name in enumerate(sections):
+            res = [r[i] for r in runs]
+            if name != "mp_halo":
+                ms = max(res)
+                results[name][w] = {"ms": ms, "backend": backend,
+                                    "label": label}
+                print(f"{name} world {w} ({backend}, {label}): {ms:8.2f} "
+                      f"ms/step ({w / ms * 1e3:.2f} microbatches/s)",
+                      flush=True)
+                continue
+            H, shard_n = res[0]["halo"], res[0]["shard_n"]
+            rows = w * H
+            ms = max(r["ms"] for r in res)
+            results["mp_halo"][w] = {
+                "ms": ms, "backend": backend, "label": label, "halo": H,
+                "shard_n": shard_n, "rows_per_exchange": rows,
+                "bytes_per_exchange": rows * 32 * 4}
+            print(f"mp {w} ({backend}, {label}): halo H = {H} rows a pair, "
+                  f"{rows} rows ({rows * 32 * 4} bytes of 32-wide f32) an "
+                  f"exchange a rank, {100 * rows / (shard_n * w):.1f} % of "
+                  f"N; {ms:8.2f} ms/step (strong scaling, fixed global "
+                  f"batch)", flush=True)
 
-    for mp in WORLDS:
-        if mp == 1:
-            ms = _mp_single(device, args.reps)
-            results["mp_halo"][1] = {"ms": ms}
-            print(f"mp 1 (single device): {ms:8.2f} ms/step", flush=True)
-            continue
-        plan = _plan(mp, device)
-        if plan is None:
-            print(f"mp {mp}: skipped (too many ranks)", flush=True)
-            continue
-        backend, label = plan
-        res = spawn_ranks(mp_rank, mp, (args.reps,), device=device.type,
-                          backend=backend)
-        H, shard_n = res[0]["halo"], res[0]["shard_n"]
-        rows = mp * H
-        ms = max(r["ms"] for r in res)
-        results["mp_halo"][mp] = {
-            "ms": ms, "backend": backend, "label": label, "halo": H,
-            "shard_n": shard_n, "rows_per_exchange": rows,
-            "bytes_per_exchange": rows * 32 * 4}
-        print(f"mp {mp} ({backend}, {label}): halo H = {H} rows a pair, "
-              f"{rows} rows ({rows * 32 * 4} bytes of 32-wide f32) an "
-              f"exchange a rank, {100 * rows / (shard_n * mp):.1f} % of N; "
-              f"{ms:8.2f} ms/step (strong scaling, fixed global batch)",
-              flush=True)
-
-    dp = results["dp"]
-    if 1 in dp:
-        print("dp weak-scaling efficiency vs world 1: " + "  ".join(
-            f"{w}: {dp[1]['ms'] / v['ms'] * 100:5.1f}% ({v['label']})"
-            for w, v in sorted(dp.items())), flush=True)
+    for name in ("dp", "gspmd"):
+        runs = results[name]
+        if 1 in runs:
+            print(f"{name} weak-scaling efficiency vs world 1: " + "  ".join(
+                f"{w}: {runs[1]['ms'] / v['ms'] * 100:5.1f}% ({v['label']})"
+                for w, v in sorted(runs.items())), flush=True)
     mh = results["mp_halo"]
     if 1 in mh:
         print("mp strong-scaling efficiency (speedup / mp): " + "  ".join(
             f"{m}: {mh[1]['ms'] / (v['ms'] * m) * 100:5.1f}%"
             for m, v in sorted(mh.items())), flush=True)
-    print(f"gspmd: {results['gspmd']}", flush=True)
     print(json.dumps(results), flush=True)
     return results
 

@@ -28,6 +28,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .segment import zeros_for
+
 
 @dataclass
 class GraphBatch:
@@ -90,8 +92,8 @@ class GraphBatch:
     def in_degrees(self) -> torch.Tensor:
         """[N] in-degree of each node over the real edges, in the edge
         mask's type."""
-        out = self.edge_mask.new_zeros(self.num_nodes)
-        return out.index_add_(0, self.receivers.long(), self.edge_mask)
+        out = zeros_for(self.edge_mask, (self.num_nodes,))
+        return out.index_add(0, self.receivers.long(), self.edge_mask)
 
     def _map(self, fn) -> "GraphBatch":
         kw = {}

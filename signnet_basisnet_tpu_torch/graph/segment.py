@@ -1,9 +1,9 @@
 """Segment reductions — the message-passing primitives.
 
-Port of signnet_basisnet_tpu/graph/segment.py onto `index_add_` and
+Port of signnet_basisnet_tpu/graph/segment.py onto `index_add` and
 `scatter_reduce` (`segment_sum`, `segment_mean`, `segment_max`,
 `segment_min`, `segment_softmax`), with the JAX module's two switches: the sum backend
-(`set_sum_backend`: 'xla', index_add_, or 'onehot', a product with a
+(`set_sum_backend`: 'xla', index_add, or 'onehot', a product with a
 one-hot matrix built on the device by comparison, never syncing the host:
 ops/segment_matmul.py) and the neighbor-aggregation backend
 (`set_agg_backend`).  All functions take a static `num_segments` and never
@@ -14,6 +14,7 @@ gradient evenly among the tied entries, as the JAX reductions do.
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
@@ -22,7 +23,7 @@ import torch
 # segment whose max stays at the sentinel is empty.
 _NEG_BIG = -1e30
 
-# Backend for sum reductions (segment_sum): 'xla' (index_add_) or 'onehot'
+# Backend for sum reductions (segment_sum): 'xla' (index_add) or 'onehot'
 # (onehot(ids)^T @ data as one matmul).  The names are the JAX package's.
 _SUM_BACKEND = "xla"
 
@@ -68,8 +69,30 @@ def segment_sum(data, segment_ids, num_segments):
         flat = data.reshape(data.shape[0], -1)
         out = segment_sum_onehot(flat, segment_ids, num_segments)
         return out.reshape((num_segments,) + tuple(data.shape[1:]))
-    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add_(0, segment_ids.long(), data)
+    out = zeros_for(data, (num_segments,) + tuple(data.shape[1:]))
+    return out.index_add(0, segment_ids.long(), data)
+
+
+def is_dtensor(t) -> bool:
+    """Whether `t` is a DTensor (parallel/gspmd.py).  Only a process that
+    imported torch.distributed.tensor can hold one, so a process that did
+    not is spared that import (seconds, in every process it would start)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def zeros_for(data, shape):
+    """The zero accumulator of a sum of `data` into `shape`: on a DTensor
+    (parallel/gspmd.py) a `Partial` one on `data`'s mesh, each rank's zeros,
+    which the out-of-place `index_add` of a sharded source keeps `Partial`
+    (an in-place op cannot change its placement)."""
+    if is_dtensor(data):
+        from torch.distributed.tensor import DTensor, Partial
+        local = torch.zeros(shape, dtype=data.dtype, device=data.device)
+        return DTensor.from_local(local, data.device_mesh,
+                                  [Partial()] * data.device_mesh.ndim,
+                                  run_check=False)
+    return data.new_zeros(shape)
 
 
 def segment_mean(data, segment_ids, num_segments,

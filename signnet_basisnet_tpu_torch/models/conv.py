@@ -34,7 +34,9 @@ local edges and the exchanged halo rows, the gather-based layers read
 their source rows through `src_features` ([x ‖ halo]), the GatedGCN layer
 applies B and D and the Transformer K and V (and K_2) to the exchanged
 rows, and `pool_any` sums its per-graph partials over the group.  A shard
-carries no tile ranges, so no kernel runs there, as in JAX.
+carries no tile ranges, so no kernel runs there, as in JAX.  Under GSPMD
+(parallel/gspmd.py, DTensor features) `neighbor_sum` runs K1 on
+replicated operands, as XLA runs a custom call it cannot partition.
 """
 from __future__ import annotations
 
@@ -79,9 +81,18 @@ def neighbor_sum(x, gb):
     if backend == "pallas_tile" and "tile_starts" in gb.extras:
         bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
         flat = x.reshape(x.shape[0], -1)
-        out = spmm_tiled(flat, gb.senders, gb.receivers, gb.edge_mask,
-                         gb.extras["tile_starts"], gb.extras["tile_ends"],
-                         gb.num_nodes, bn, csr=batch_csr(gb))
+
+        def sum_tiled(flat, senders, receivers, edge_mask, starts, ends,
+                      *csr):
+            return spmm_tiled(flat, senders, receivers, edge_mask, starts,
+                              ends, gb.num_nodes, bn, csr=csr)
+        if seg.is_dtensor(flat):
+            # GSPMD (parallel/gspmd.py): K1 on replicated operands
+            from ..parallel.gspmd import on_replicated
+            sum_tiled = on_replicated(sum_tiled, flat.device_mesh)
+        out = sum_tiled(flat, gb.senders, gb.receivers, gb.edge_mask,
+                        gb.extras["tile_starts"], gb.extras["tile_ends"],
+                        *batch_csr(gb))
         return out.reshape(x.shape)
     msg = x.index_select(0, gb.senders.long())
     return seg.aggregate_edges(msg, gb.receivers, gb.num_nodes,

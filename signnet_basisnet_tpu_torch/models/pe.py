@@ -7,7 +7,8 @@ SignNet parameters) and `none` leaves the PE unchanged.
 
 `sign_flip` draws its +-1 per eigenvector column from a seeded generator
 (a `nn.dropout.DropoutRNG`) on the PE's device, never through the host;
-the two packages draw different bits from the same seed.
+the two packages draw different bits from the same seed.  On a DTensor
+(parallel/gspmd.py) every rank draws the single-device flips, replicated.
 """
 from __future__ import annotations
 
@@ -23,6 +24,11 @@ def sign_flip(pos_enc, rng):
                    device=pos_enc.device)
     rng.draws += 1
     flips = torch.where(u >= 0.5, 1.0, -1.0).to(pos_enc.dtype)
+    if seg.is_dtensor(pos_enc):
+        # parallel/gspmd.py: every rank draws the single-device flips
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = pos_enc.device_mesh
+        flips = DTensor.from_local(flips, mesh, [Replicate()] * mesh.ndim)
     return pos_enc * flips[None, :]
 
 

@@ -9,7 +9,10 @@ seeded from the run's seed and made on the device of the first tensor it
 masks.  The two packages draw different bits from the same seed, so they
 agree only at rate 0, or in distribution.  A CUDA graph of the train step
 must register the generator (`training.train.capture_train_step` does), so
-that each replay draws a fresh mask.
+that each replay draws a fresh mask.  On a DTensor (parallel/gspmd.py) the
+mask is drawn on the full shape from the same generator on every rank and
+placed as the input is placed (`place_like`): the sharded step draws the
+single-device step's bits, as JAX's partitionable PRNG does.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from ..graph.segment import is_dtensor
 
 
 class DropoutRNG:
@@ -44,6 +49,17 @@ def model_rngs(model: nn.Module) -> Dict[str, DropoutRNG]:
             if isinstance(v, DropoutRNG)}
 
 
+def place_like(full: torch.Tensor, like: DTensor) -> DTensor:
+    """`full`, which every rank holds alike, as a DTensor placed as `like`
+    is (a `Partial` axis replicated), each rank keeping its own shard with
+    no communication."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    placements = [Replicate() if p.is_partial() else p
+                  for p in like.placements]
+    return distribute_tensor(full, like.device_mesh, placements,
+                             src_data_rank=None)
+
+
 class Dropout(nn.Module):
     def __init__(self, rate: float, rng: Optional[DropoutRNG] = None):
         super().__init__()
@@ -57,6 +73,12 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(
-            1.0 - self.rate, generator=self.rng.on(x.device))
+        if is_dtensor(x):
+            keep = place_like(torch.empty_strided(
+                x.shape, x.stride(), dtype=x.dtype, device=x.device
+            ).bernoulli_(1.0 - self.rate, generator=self.rng.on(x.device)),
+                x)
+        else:
+            keep = torch.empty_like(x).bernoulli_(
+                1.0 - self.rate, generator=self.rng.on(x.device))
         return x * keep / (1.0 - self.rate)

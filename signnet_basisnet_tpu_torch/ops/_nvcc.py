@@ -13,6 +13,9 @@ first) and read back when the library is reused, so `build_info` holds it
 on every run; a library without its report is built again.  There is no
 fallback: a failed build raises.  `torch.utils.cpp_extension` is not used:
 its builds include PyTorch's headers and take minutes.
+
+`refuse_dtensor` is every kernel wrapper's guard against a DTensor, whose
+storage is a rank's shard and never goes to a kernel through ctypes.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import shutil
 import subprocess
 import time
 from typing import Dict, List
+
+from ..graph.segment import is_dtensor
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -35,6 +40,16 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # library was already built), nvcc's -Xptxas -v report (from the build or
 # read back beside the library), the library's path
 build_info: Dict[str, dict] = {}
+
+
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """TypeError if a tensor handed to the wrapper of `kernel` is a
+    DTensor: a kernel runs on plain tensors only, under GSPMD on each
+    rank's full operands (parallel/gspmd.py: `on_replicated`)."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            f"{kernel}: handed a DTensor; the kernel takes plain tensors "
+            "(under GSPMD run it through parallel.gspmd.on_replicated)")
 
 
 def source_path(name: str) -> str:

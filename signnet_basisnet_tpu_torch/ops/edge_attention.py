@@ -303,6 +303,8 @@ def edge_softmax_attention_tiled(Q, K, V, E1, senders, receivers, edge_mask,
     from `graph.batch.edge_csr`.  Returns [N, H, D] in the inputs' common
     type.
     """
+    _nvcc.refuse_dtensor("edge_softmax_attention_tiled", Q, K, V, E1,
+                         senders, receivers, edge_mask, starts, ends, *csr)
     dt = _common_dtype(Q, K, V, E1)
     Q, K, V, E1 = (t.to(dt) for t in (Q, K, V, E1))
     if Q.device.type == "cuda":

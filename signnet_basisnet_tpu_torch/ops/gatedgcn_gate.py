@@ -183,6 +183,8 @@ def gatedgcn_gate_tiled(Bh, Dh, Eh, Ce, senders, receivers, edge_mask,
     reads dst_ptr).  Returns (agg [N, F], e_new [E, F]) in the inputs'
     common type.
     """
+    _nvcc.refuse_dtensor("gatedgcn_gate_tiled", Bh, Dh, Eh, Ce, senders,
+                         receivers, edge_mask, starts, ends, *csr)
     if Bh.shape[0] != num_nodes:
         raise ValueError(f"Bh has {Bh.shape[0]} rows, expected {num_nodes}")
     if Bh.device.type not in ("cuda", "cpu"):

@@ -162,6 +162,8 @@ def spmm_flat(x, senders, receivers, weights, starts, ends, num_nodes: int,
     [num_nodes, D] in x's type, every row written (zeros where no edge
     counts).
     """
+    _nvcc.refuse_dtensor("spmm_flat", x, senders, receivers, weights, starts,
+                         ends)
     if x.shape[0] != num_nodes:
         raise ValueError(f"x has {x.shape[0]} rows, expected {num_nodes}")
     if torch.is_grad_enabled() and (x.requires_grad or weights.requires_grad):

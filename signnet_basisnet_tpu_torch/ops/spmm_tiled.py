@@ -188,6 +188,8 @@ def spmm_tiled(x, senders, receivers, weights, starts, ends, num_nodes: int,
     The kernel walks the rows' edges through them; the plain version on
     CPU tensors does not read them.
     """
+    _nvcc.refuse_dtensor("spmm_tiled", x, senders, receivers, weights, starts,
+                         ends, *csr)
     if x.shape[0] != num_nodes:
         raise ValueError(f"x has {x.shape[0]} rows, expected {num_nodes}")
     return _SpmmTiled.apply(x, senders, receivers, weights, starts, ends, csr,

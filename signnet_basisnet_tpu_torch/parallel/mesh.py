@@ -30,7 +30,6 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-from torch.distributed.tensor import Replicate, Shard
 
 from ..utils import card_or_cpu
 
@@ -86,11 +85,13 @@ def make_mesh(dp: Optional[int] = None, mp: int = 1,
 def dp_sharding(mesh: DeviceMesh) -> Tuple:
     """Placements of stacked microbatches: the leading axis sharded over
     'dp', replicated over the other axes."""
+    from torch.distributed.tensor import Replicate, Shard
     return tuple(Shard(0) if name == "dp" else Replicate()
                  for name in _names(mesh))
 
 
 def replicated(mesh: DeviceMesh) -> Tuple:
+    from torch.distributed.tensor import Replicate
     return tuple(Replicate() for _ in _names(mesh))
 
 

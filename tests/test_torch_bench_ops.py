@@ -285,9 +285,10 @@ def test_bench_ops_main_runs_every_section(monkeypatch):
 
 def test_port_imports_no_jax():
     """Every module of the port, bench_ops, the Alchemy, GINE-ZINC and
-    LearningFilters slices' modules and the parallel paths (parallel/,
-    bench_scaling) included, imports with `jax` unimportable, and loads
-    nothing of the JAX package."""
+    LearningFilters slices' modules, the parallel paths (parallel/,
+    bench_scaling) and the modules GSPMD reaches (the segment sums, the
+    draws, the kernel wrappers) included, imports with `jax`
+    unimportable, and loads nothing of the JAX package."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -299,6 +300,9 @@ for name in names:
 assert "signnet_basisnet_tpu_torch.bench_ops" in names, names
 assert "signnet_basisnet_tpu_torch.ops.spmm_flat" in names, names
 for new in ("train_alchemy", "train_zinc_gine", "models.gnn",
+            "graph.segment", "graph.batch", "nn.dropout", "models.pe",
+            "models.conv", "ops._nvcc", "ops.spmm_tiled", "ops.spmm_flat",
+            "ops.gatedgcn_gate", "ops.edge_attention",
             "models.baselines", "nn.encoders", "nn.set_transformer",
             "nn.set2set", "data.alchemy", "spectral.projectors",
             "train_filters", "models.basisnet", "models.spectral_filters",
@@ -338,19 +342,22 @@ def test_native_argtypes_match_the_c_signature():
 
 
 def test_bench_scaling_runs_on_cpu_ranks(capsys):
-    """bench_scaling on the CPU at its full sizes: DP at worlds of one and
-    two gloo ranks, mp 1 (the single-device step) and mp 2, one timed step
-    each, larger worlds skipped; the halo and exchange sizes come from the
-    partition, GSPMD is refused, and the last line is the JSON record."""
+    """bench_scaling on the CPU at its full sizes: DP and GSPMD at worlds
+    of one and two gloo ranks, mp 1 (the single-device step) and mp 2, one
+    timed step each, larger worlds skipped; the halo and exchange sizes
+    come from the partition, and the last line is the JSON record."""
     res = bench_scaling.main(["--device", "cpu", "--reps", "1"])
     out = capsys.readouterr().out.strip().splitlines()
     assert json.loads(out[-1])["device"] == "cpu"
     assert set(res["dp"]) == {1, 2} and set(res["mp_halo"]) == {1, 2}
     assert "dp world 8: skipped (too many ranks)" in out
+    assert "gspmd world 8: skipped (too many ranks)" in out
     mp2 = res["mp_halo"][2]
     parts = partition_batch_mp(bench_scaling.make_global(
         bench_scaling.MP_GRAPHS), 2)
     assert mp2["halo"] == parts["halo"] and mp2["rows_per_exchange"] == \
         2 * parts["halo"]
     assert all(np.isfinite(v["ms"]) for v in res["mp_halo"].values())
-    assert "item 26" in res["gspmd"]
+    assert set(res["gspmd"]) == {1, 2}
+    assert all(np.isfinite(v["ms"]) and v["ms"] > 0
+               for v in res["gspmd"].values())

@@ -111,9 +111,8 @@ def test_gat_conv_attention_sums_to_one_over_real_edges():
                                                    6))
 
 
-def test_gat_and_gcn_refuse_the_model_parallel_halo(tmp_path):
-    """The name is kept from when the layers refused the halo; they now
-    take it.  GAT and GCN read their source rows through `src_features`
+def test_gat_and_gcn_take_the_model_parallel_halo(tmp_path):
+    """GAT and GCN read their source rows through `src_features`
     on a model-parallel shard: on a one-rank shard each equals the layer
     on the plain batch (tests/test_torch_mp_halo.py holds the route
     across ranks)."""

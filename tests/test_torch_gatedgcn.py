@@ -159,9 +159,8 @@ def test_gatedgcn_layer_matches_jax(backend, features, graph_norm):
                                    **TOL)
 
 
-def test_gatedgcn_layer_refuses_the_model_parallel_halo(tmp_path):
-    """The name is kept from when the layer refused the halo; it now
-    takes it.  On a one-rank model-parallel shard, with the exchanged rows
+def test_gatedgcn_layer_takes_the_model_parallel_halo(tmp_path):
+    """On a one-rank model-parallel shard, with the exchanged rows
     through B and D appended, it equals the layer on the plain batch
     (tests/test_torch_mp_halo.py holds the route across ranks)."""
     arrays = _packed()

@@ -152,9 +152,8 @@ def test_lspe_layer_matches_jax(features):
                                    **TOL)
 
 
-def test_lspe_layer_refuses_the_model_parallel_halo(tmp_path):
-    """The name is kept from when the layer refused the halo; it now
-    takes it.  The GatedGCN-LSPE layer reads B2 h, A2 [h || p] and C2 p
+def test_lspe_layer_takes_the_model_parallel_halo(tmp_path):
+    """The GatedGCN-LSPE layer reads B2 h, A2 [h || p] and C2 p
     of its sources through `src_features` on a model-parallel shard: on a
     one-rank shard it equals the layer on the plain batch
     (tests/test_torch_mp_halo.py holds the route across ranks)."""

@@ -281,9 +281,8 @@ def test_canonical_ref_keeps_the_published_minus_two():
         assert np.array_equal(got[rows, 1], pe[rows, 1]), method
 
 
-def test_canonical_refuses_the_model_parallel_halo(tmp_path):
-    """The name is kept from when the method refused the halo; it now
-    takes it.  On a model-parallel shard the canonical signs come from
+def test_canonical_takes_the_model_parallel_halo(tmp_path):
+    """On a model-parallel shard the canonical signs come from
     per-graph counts summed over the mp group: on a one-rank shard they
     are the plain batch's, bit for bit (tests/test_torch_mp_halo.py holds
     them across ranks)."""

@@ -23,6 +23,8 @@ from signnet_basisnet_tpu_torch.parallel import (
     build_dp_steps, build_gspmd_steps, build_mp_steps, device_arrays_mp,
     edge_sharded_aggregate, graphbatch_shardings, halo_edge_aggregate,
     make_mesh, partition_batch_mp, shard_arrays_mp, tile_aligned_aggregate)
+from signnet_basisnet_tpu_torch.parallel.gspmd import (place_batch,
+                                                       register_rules)
 from signnet_basisnet_tpu_torch.parallel.mp_halo import (
     _gb_of, mp_axis_ctx, mp_exchange, mp_neighbor_sum, mp_pool_nodes)
 from signnet_basisnet_tpu_torch.training import (adam, build_steps,
@@ -234,45 +236,168 @@ def dst_partitioned(rank, dev, case):
 
 
 def gspmd(rank, dev, case):
-    """graphbatch_shardings over a 1-D mesh of the world, the refusal of
-    build_gspmd_steps, and what DTensor makes of the in-place index_add_
-    of a replicated [40, 12, 12] accumulator (the op that blocks it)."""
+    """graphbatch_shardings over a 1-D mesh of the world, and this rank's
+    shard of each leaf of the batch that place_batch placed by them."""
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import Replicate, Shard
     mesh = init_device_mesh("cpu", (dist.get_world_size(),),
                             mesh_dim_names=("mp",))
     gb = from_arrays(case["arrays"])
-    specs = graphbatch_shardings(mesh, gb, "mp").tensors()
-    out = {"sharded": {k: v == (Shard(0),) for k, v in specs.items()},
-           "replicated": {k: v == (Replicate(),) for k, v in specs.items()}}
-    try:
-        build_gspmd_steps(None, None, None, mesh, gb)
-    except NotImplementedError as e:
-        out["refused"] = str(e)
-    g = torch.Generator().manual_seed(0)
-    idx = torch.randint(0, 40, (160,), generator=g)
-    src = torch.randn(160, 12, 12, generator=g)
-    acc = distribute_tensor(torch.zeros(40, 12, 12), mesh, [Replicate()])
-    try:
-        res = acc.index_add_(0, distribute_tensor(idx, mesh, [Shard(0)]),
-                             distribute_tensor(src, mesh, [Shard(0)]))
-        local = tuple(res.to_local().shape)
-        out["index_add_"] = (f"placements {res.placements}, local {local}"
-                             + ("" if local == _local_shape(res)
-                                else " (inconsistent)"))
-    except RuntimeError as e:
-        out["index_add_"] = "raised: " + str(e)
+    specs = graphbatch_shardings(mesh, gb, "mp")
+    placed = place_batch(gb, mesh, specs).tensors()
+    specs = specs.tensors()
+    return {"sharded": {k: v == (Shard(0),) for k, v in specs.items()},
+            "replicated": {k: v == (Replicate(),) for k, v in specs.items()},
+            "local": {k: _np(v.to_local()) for k, v in placed.items()}}
+
+
+def _mesh(world):
+    """The ("dp", "mp") mesh of JAX's GSPMD test: dp 1, mp the world."""
+    return make_mesh(dp=1, mp=world, device_type="cpu")
+
+
+def gspmd_rules(rank, dev, case):
+    """The port's DTensor pieces against plain torch on the same inputs:
+    the registered rules (segment sums of sharded rows into a Partial
+    accumulator and of replicated ones, segment max and min of sharded
+    rows, a gather by sharded ids) forward and gradient, in_degrees; the
+    dropout mask and the sign flips drawn under DTensor; the all-gather
+    through c10d against the functional one; and each kernel wrapper
+    handed a DTensor outside on_replicated."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from signnet_basisnet_tpu_torch import ops
+    from signnet_basisnet_tpu_torch.models.pe import sign_flip
+    from signnet_basisnet_tpu_torch.parallel.gspmd import _all_gather_c10d
+    from signnet_basisnet_tpu_torch.nn.dropout import Dropout, DropoutRNG
+    register_rules()
+    mesh = _mesh(dist.get_world_size())
+    shard, repl = (Replicate(), Shard(0)), (Replicate(), Replicate())
+    place = lambda t, p: DTensor.from_local(
+        t.chunk(dist.get_world_size())[rank] if p == shard else t, mesh, p)
+    out = {}
+    x = torch.from_numpy(case["x"]).double()
+    ids = torch.from_numpy(case["ids"])
+    ct = torch.from_numpy(case["ct"]).double()
+    for name, op, p in (("sum sharded", seg.segment_sum, shard),
+                        ("sum replicated", seg.segment_sum, repl),
+                        ("max sharded", seg.segment_max, shard),
+                        ("min sharded", seg.segment_min, shard)):
+        xd = place(x, p).requires_grad_(True)
+        xp = x.clone().requires_grad_(True)
+        got = op(xd, place(ids, p), case["segments"])
+        want = op(xp, ids, case["segments"])
+        (got * place(ct, repl)).sum().backward()
+        (want * ct).sum().backward()
+        out[name] = {"partial": [q.is_partial() for q in got.placements],
+                     "got": _np(got.full_tensor()), "want": _np(want),
+                     "grad": _np(xd.grad.full_tensor()),
+                     "grad_want": _np(xp.grad)}
+    # a gather of replicated rows by sharded ids (an embedding lookup),
+    # whose backward is the accumulating index_put
+    wd, wp = (place(ct, repl).requires_grad_(True),
+              ct.clone().requires_grad_(True))
+    got, want = wd[place(ids, shard)], wp[ids]
+    (got * place(x, shard)).sum().backward()
+    (want * x).sum().backward()
+    out["gather sharded"] = {"got": _np(got.full_tensor()),
+                             "want": _np(want),
+                             "grad": _np(wd.grad.full_tensor()),
+                             "grad_want": _np(wp.grad)}
+    gb = from_arrays(case["arrays"])
+    placed = place_batch(gb, mesh, graphbatch_shardings(mesh, gb, "mp"))
+    out["in_degrees"] = (_np(placed.in_degrees().full_tensor()),
+                         _np(gb.in_degrees()))
+    drop = Dropout(0.5, DropoutRNG(7))
+    x2 = torch.from_numpy(case["x"])
+    out["dropout"] = (_np(drop(place(x2, shard)).full_tensor()),
+                      _np(Dropout(0.5, DropoutRNG(7))(x2)))
+    pe = torch.from_numpy(case["pe"])
+    out["sign_flip"] = (_np(sign_flip(place(pe, shard),
+                                      DropoutRNG(5)).full_tensor()),
+                        _np(sign_flip(pe, DropoutRNG(5))))
+    shard_x = torch.from_numpy(case["x"]).reshape(
+        dist.get_world_size(), 4, -1)[rank]
+    out["all_gather"] = {
+        dim: (_np(_all_gather_c10d(shard_x, dim, (mesh, 1))),
+              _np(funcol.wait_tensor(funcol.all_gather_tensor(
+                  shard_x, dim, (mesh, 1))))) for dim in (0, 1)}
+    t = from_arrays(case["tiled"])
+    n, e = t.num_nodes, t.num_edges
+    csr = tuple(t.extras[k] for k in ("dst_ptr", "src_order", "src_ptr"))
+    st, en = t.extras["tile_starts"], t.extras["tile_ends"]
+    bn = n // st.shape[0]
+    xs = place(torch.ones(n, 8), shard)
+    ee = place(torch.ones(e, 2, 4), shard)
+    q = place(torch.ones(n, 2, 4), shard)
+    calls = {
+        "spmm_tiled": lambda: ops.spmm_tiled(
+            xs, t.senders, t.receivers, t.edge_mask, st, en, n, bn, csr),
+        "spmm_flat": lambda: ops.spmm_flat(
+            xs, t.senders, t.receivers, t.edge_mask, st, en, n, bn),
+        "gatedgcn_gate_tiled": lambda: ops.gatedgcn_gate_tiled(
+            xs, xs, xs, place(torch.ones(e, 8), shard), t.senders,
+            t.receivers, t.edge_mask, st, en, n, bn, csr),
+        "edge_softmax_attention_tiled": lambda: (
+            ops.edge_softmax_attention_tiled(
+                q, q, q, ee, t.senders, t.receivers, t.edge_mask, st, en,
+                bn, csr))}
+    out["refused"] = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out["refused"][name] = "ran"
+        except TypeError as err:
+            out["refused"][name] = str(err)
     return out
 
 
-def _local_shape(dt):
-    """The local shape a DTensor's placements imply on a 1-D mesh whose
-    size divides every sharded axis."""
-    shape = list(dt.shape)
-    for p in dt.placements:
-        if p.is_shard():
-            shape[p.dim] //= dt.device_mesh.size()
-    return tuple(shape)
+def _adam_state(opt, tm):
+    """exp_avg and exp_avg_sq of each parameter, by name, full."""
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    return {f"{n}.{k}": _np(full(opt.state[p][k]))
+            for n, p in tm.named_parameters() if p in opt.state
+            for k in ("exp_avg", "exp_avg_sq")}
+
+
+def _gspmd_record(tm, opt, ev, metrics):
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    return {"loss": float(metrics["loss"]), "mae": float(metrics["mae"]),
+            "eval": {k: float(v) for k, v in ev.items()},
+            "grads": {n: _np(full(p.grad)) for n, p in tm.named_parameters()
+                      if p.grad is not None},
+            "buffers": {n: _np(full(b)) for n, b in tm.named_buffers()},
+            "adam": _adam_state(opt, tm)}
+
+
+def gspmd_step(rank, dev, case):
+    """The SignNetGNN of JAX's GSPMD test (seeded init, or the case's
+    bridged weights), an eval step then a train step, in each of the
+    case's dtypes: the single-device steps on the whole batch and
+    build_gspmd_steps' over the world (dp 1, mp the world), with the
+    case's attention dropout."""
+    from signnet_basisnet_tpu_torch.training import make_module_predict
+    out = {}
+    for name in case["dtypes"]:
+        dtype = getattr(torch, name)
+        gb = from_arrays(case["arrays"]).cast_floats(dtype)
+        for how in ("single", "gspmd"):
+            tm = TM.SignNetGNN(12, 1, 2, 2, 1)
+            if case.get("variables") is not None:
+                load_flax_variables(tm, case["variables"])
+            TM.set_attention_dropout(tm, case["attention_dropout"])
+            tm = tm.to(dtype)
+            opt = adam(tm.parameters())
+            if how == "single":
+                train, ev = build_steps(tm, make_module_predict(tm), opt)
+            else:
+                train, ev = build_gspmd_steps(
+                    tm, make_module_predict(tm), opt,
+                    _mesh(dist.get_world_size()), gb)
+            sums = ev(gb)
+            out[f"{how}_{name}"] = _gspmd_record(tm, opt, sums,
+                                                 train(gb, LR))
+    return out
 
 
 def train_zinc_mp(rank, dev, case):
@@ -288,4 +413,5 @@ CASES = {"mp_step": mp_step, "exchange": exchange,
          "neighbor_sum": neighbor_sum, "pool": pool, "dp_step": dp_step,
          "mesh": mesh_shapes, "edge_sharded": edge_sharded,
          "dst_partitioned": dst_partitioned, "gspmd": gspmd,
+         "gspmd_rules": gspmd_rules, "gspmd_step": gspmd_step,
          "train_zinc": train_zinc_mp}
