@@ -30,6 +30,9 @@ each so a stall shows where it happened:
    version and, where one exists, of one library call (a yardstick, never
    used by the port: torch.sparse.mm at each of K1's widths) beside the
    bound the card's memory and arithmetic rates put on the same work;
+   and (1e) the timer stamp kernel (ops/timer_stamp.py, the stamps of the
+   train step's device spans) around a spin of ~10 ms within 2 % of CUDA
+   events, eagerly and in each replay of a graph;
 2. the GIN path: one full-width train step on the card against the same
    step on the CPU (the kernels' plain versions) from the same weights; the
    warm step's time on one fixed batch, f32 and bf16 in turns, with the
@@ -71,13 +74,16 @@ each so a stall shows where it happened:
    step's loss within 1e-5 relative and every parameter, BN statistic and
    Adam state within 1e-5 + 1e-4 relative, each plus twice the spread of
    two eager runs, all with deterministic algorithms (index_add_'s atomics
-   make the eager step unrepeatable, and Adam amplifies that); a replay's
-   kernel launches read from the profiler against the eager step's
-   counters (GIN 47 K1; Transformer 10 K2 and 10 K3; GatedGCN 16 K4 and
-   15 K1); then, outside deterministic mode, a fresh eager step (float
-   LR) and a fresh capture: the replay's launches again, both step times
-   in interleaved windows (host clock, median and min-max) and each one's
-   device busy share and device ops per step (profiler);
+   make the eager step unrepeatable, and Adam amplifies that; the first
+   replay runs the graph with the device spans' stamps, the others the
+   one without); a replay's kernel launches (the step's `launches`)
+   against the eager step's counters (GIN 47 K1; Transformer 10 K2 and 10
+   K3; GatedGCN 16 K4 and 15 K1) and `replays` against the calls; then,
+   outside deterministic mode, a fresh eager step (float LR) and a fresh
+   capture: the replay's launches again, both step times in interleaved
+   windows (host clock, median and min-max), the last device-span sample
+   (every region within its step) against the replays' median, and each
+   one's device busy share and device ops per step (profiler);
 8. the port's bench (python -m signnet_basisnet_tpu_torch.bench --mode
    auto) and bench_roofline, each in its own process: exit 0, their JSON
    last lines, every mfu_* share at most 100 %;
@@ -855,12 +861,8 @@ def _check_step_card_vs_cpu(model_name, net, arrays, make_step,
 
 def _counts():
     """Every kernel wrapper's launch counter, K1-K5."""
-    from signnet_basisnet_tpu_torch import ops
-    return {"K1": ops.spmm_tiled.launches,
-            "K2": ops.edge_softmax_attention_tiled.launches_fwd,
-            "K3": ops.edge_softmax_attention_tiled.launches_bwd,
-            "K4": ops.gatedgcn_gate_tiled.launches,
-            "K5": ops.spmm_flat.launches}
+    from signnet_basisnet_tpu_torch.training.train import kernel_launches
+    return kernel_launches()
 
 
 def _reset_counts():
@@ -2584,6 +2586,8 @@ def main():
         "signnet_basisnet_tpu_torch.ops.gatedgcn_gate")
     flat_mod = importlib.import_module(
         "signnet_basisnet_tpu_torch.ops.spmm_flat")
+    stamp_mod = importlib.import_module(
+        "signnet_basisnet_tpu_torch.ops.timer_stamp")
     from signnet_basisnet_tpu_torch import bench, bench_ops
     from signnet_basisnet_tpu_torch.ops.spmm_tiled import (
         _launch, _tile_mask, edge_in_range, spmm_tiled, spmm_tiled_plain)
@@ -2595,6 +2599,8 @@ def main():
                                                      capture_train_step,
                                                      load_config,
                                                      make_zinc_predict)
+    from signnet_basisnet_tpu_torch.training.train import CAPTURE_WARMUP
+    from signnet_basisnet_tpu_torch.utils import profiling
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2611,7 +2617,7 @@ def main():
         record["card"] = smi
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
-        _build_all([spmm_mod, attn, gate_mod, flat_mod])
+        _build_all([spmm_mod, attn, gate_mod, flat_mod, stamp_mod])
         instances = {}
         for name, info in _nvcc.build_info.items():
             print(f"{name}: nvcc {info['seconds']:.1f} s -> "
@@ -3474,6 +3480,47 @@ def main():
                      bound_by=k5_bound["bound_by"], library_ms=k5_library_ms)
         del flush, a_csr
 
+    with Phase("1e timer stamp kernel vs CUDA events"):
+        # the device spans' stamps (ops/timer_stamp.py) around a spin of
+        # ~10 ms read that spin within 2 % of CUDA events around the same
+        # stamps, eagerly and as kernel nodes of a graph whose every replay
+        # writes its own times
+        stamps = torch.zeros(2, dtype=torch.int64, device=dev)
+
+        def spin():
+            stamp_mod.timer_stamp(stamps, 0)
+            torch.cuda._sleep(20_000_000)
+            stamp_mod.timer_stamp(stamps, 1)
+
+        def stamped_ms(fn):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b), (stamps[1] - stamps[0]).item() * 1e-6
+
+        spin_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(spin_graph):
+            spin()
+        reads = [("eager", *stamped_ms(spin))]
+        starts = []
+        for i in range(2):
+            reads.append((f"replay {i}", *stamped_ms(spin_graph.replay)))
+            starts.append(stamps[0].item())
+        for tag, events_ms, stamp_ms in reads:
+            print(f"  {tag}: stamps {stamp_ms:.4f} ms, CUDA events "
+                  f"{events_ms:.4f} ms", flush=True)
+            if not 0.98 * events_ms <= stamp_ms <= events_ms:
+                raise AssertionError(f"1e {tag}: stamps {stamp_ms} ms, "
+                                     f"events {events_ms} ms")
+        if not starts[1] > starts[0] + 5_000_000:
+            raise AssertionError(f"1e: the second replay wrote no stamps of "
+                                 f"its own {starts}")
+        record["timer_stamp_vs_events_ms"] = reads
+        del spin_graph
+
     # ---------------------------------------------------------------- 2
     def trainer_cfg(extra):
         return load_config(CONFIG, [
@@ -3834,8 +3881,10 @@ def main():
     # full width, from one init, over 2 batches of one set of budgets
     # copied in turn into the graph's static batch.  Both steps take the
     # capturable Adam (LR a device tensor), so they differ only in the
-    # capture.  A replay's launches are read from the profiler (the
-    # wrappers' counters count the capture once and no replay).
+    # capture.  A replay's launches are the step's `launches`, the
+    # wrappers' counters over its capture (they count each capture once
+    # and no replay); with the device spans on, the step is captured twice
+    # (with and without its stamps) and the replays run both.
     card = record["card"]
     gs16 = synthetic_zinc(512, 0, 0, seed=0)["train"]
     add_lap_pe(gs16, 16)
@@ -3855,6 +3904,9 @@ def main():
                 "attn_fwd": lambda: tiled.launches_fwd,
                 "attn_bwd": lambda: tiled.launches_bwd,
                 "gate_kernel": lambda: gate.launches}
+    # the kernel names above as `capture_train_step`'s `launches` has them
+    k_of = {"spmm_tiled_kernel": "K1", "attn_fwd": "K2", "attn_bwd": "K3",
+            "gate_kernel": "K4"}
     record["captured"] = {}
     for label, name, kw, backend, cdt, k, per_step in capture_paths:
         gbs = two[k]
@@ -3877,8 +3929,11 @@ def main():
                     step = capture_train_step(model, predict, opt, gbs[0])
                     torch.cuda.synchronize()
                     at_capture = {n: c() for n, c in counters.items()}
-                    # 3 eager warm-up steps and the capture, each once
-                    want = {n: 4 * per_step.get(n, 0) for n in counters}
+                    # the eager warm-up steps and each capture, each once
+                    runs_once = CAPTURE_WARMUP + (
+                        1 if step.spans is None else 2)
+                    want = {n: runs_once * per_step.get(n, 0)
+                            for n in counters}
                     if at_capture != want:
                         raise AssertionError(f"{label}: wrapper counts over "
                                              f"warm-up and capture "
@@ -3912,25 +3967,27 @@ def main():
             if not (worst_l <= 0 and worst <= 1):
                 raise AssertionError(f"{label}: the captured step departs "
                                      "from the eager step")
-            # the eager step's launches by the wrappers' counters (exact),
-            # a replay's from the profiler; the profiler's count of the
-            # eager step is printed beside them
+            # the eager step's launches by the wrappers' counters, a
+            # replay's by the captured step's `launches`; the profiler's
+            # count of the eager step is printed beside them
             _reset_counts()
             eager(gbs[1], 1e-3)
             torch.cuda.synchronize()
             ce = {n: counters[n]() for n in per_step}
-            cc = device_kernel_counts(lambda: captured(gbs[1], 1e-3),
-                                      per_step)
+            cc = {n: captured.launches[k_of[n]] for n in per_step}
             ce_prof = device_kernel_counts(lambda: eager(gbs[1], 1e-3),
                                            per_step)
             print(f"  launches per step: eager (counters) {ce}, replay "
-                  f"(profiler) {cc}; eager (profiler) {ce_prof}",
-                  flush=True)
+                  f"(step.launches) {cc}; eager (profiler) {ce_prof}; "
+                  f"{captured.replays} replays", flush=True)
             for n, v in per_step.items():
                 if not ce[n] == cc[n] == v:
                     raise AssertionError(f"{label}: {n} launches per step "
                                          f"eager {ce[n]}, replay {cc[n]}, "
                                          f"expected {v}")
+            if captured.replays != 5:
+                raise AssertionError(f"{label}: step.replays "
+                                     f"{captured.replays}, 5 calls")
             rec = dict(losses_eager=le, losses_captured=lc,
                        losses_eager_again=la, worst_vs_bar=worst,
                        worst_at=at, worst_without_spread=worst_plain,
@@ -3946,10 +4003,9 @@ def main():
             plain_eager = build_steps(model, predict, opt)[0]
             cmodel, copt, cpredict = make(True)
             captured = capture_train_step(cmodel, cpredict, copt, gbs[0])
-            cc = device_kernel_counts(lambda: captured(gbs[1], 1e-3),
-                                      per_step)
+            cc = {n: captured.launches[k_of[n]] for n in per_step}
             n_params = len(list(cmodel.parameters()))
-            print(f"  a replay's launches (profiler): {cc}; {n_params} "
+            print(f"  a replay's launches (step.launches): {cc}; {n_params} "
                   "parameter tensors"
                   + (", each cast to bf16 in the forward and its gradient "
                      "back to f32, in the eager step and in the replay"
@@ -3958,6 +4014,7 @@ def main():
                 if cc[n] != v:
                     raise AssertionError(f"{label}: {n} launches per "
                                          f"replay {cc[n]}, expected {v}")
+            profiling.COUNTERS.reset()
             ms = bench.interleaved_ms({"eager": plain_eager,
                                        "captured": captured}, gbs,
                                       repeats=3)
@@ -3966,6 +4023,18 @@ def main():
                       f"{card}): median {float(np.median(v)):.2f} ms, min "
                       f"{min(v):.2f}, max {max(v):.2f}", flush=True)
             rec["step_ms"] = {n: bench.spread(v) for n, v in ms.items()}
+            # the last device-span sample of the timed replays: every
+            # region within its step, the step against the replays' median
+            torch.cuda.synchronize()
+            captured.spans.sample()
+            last = profiling.COUNTERS.values("step.regions")[-1]
+            med = float(np.median(ms["captured"]))
+            print(f"  device spans of a sampled replay (ms): {last}; step / "
+                  f"median replay {last['step'] / med:.3f}", flush=True)
+            if not all(0 < v <= last["step"] for v in last.values()):
+                raise AssertionError(f"{label}: device spans {last}")
+            rec["device_spans"] = dict(last, step_over_median=last["step"]
+                                       / med)
             for n, step in (("eager", plain_eager), ("captured", captured)):
                 prof = _profile_steps(step, gbs[0], list(per_step))
                 print(f"  profiler, {n}: {prof}", flush=True)

@@ -1,7 +1,7 @@
 from .alchemy import (ALCHEMY_NUM_TARGETS, load_alchemy, load_tudataset,
                       standardize_targets, synthetic_alchemy)
 from .batcher import (choose_budgets, code_columns, iterate_graphbatches,
-                      pack_batches, stack_microbatches)
+                      pack_batches, plan_batches, stack_microbatches)
 from .zinc import (ZINC_NUM_ATOM_TYPE, ZINC_NUM_BOND_TYPE, add_full_evd,
                    add_lap_pe, add_rwpe, avg_degree_stats, load_zinc,
                    load_zinc_pickle, synthetic_zinc)

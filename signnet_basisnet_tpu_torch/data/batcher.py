@@ -13,12 +13,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..graph.batch import batch_np, from_arrays, len_nodes
+from ..utils import profiling
 
 
 def choose_budgets(graphs: Sequence[dict], batch_graphs: int,
@@ -50,12 +52,12 @@ def code_columns(graphs: Sequence[dict], key: str) -> int:
     return int(a.shape[1]) if a.ndim == 2 else 1
 
 
-def pack_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
-                 num_graphs: int, shuffle: bool = False,
-                 seed: int = 0, drop_overflow: bool = True,
-                 k: Optional[int] = None,
-                 tile: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
-    """Greedy packing into fixed budgets; returns padded array dicts.
+def plan_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
+                 num_graphs: int, shuffle: bool = False, seed: int = 0,
+                 drop_overflow: bool = True,
+                 tile: Optional[int] = None) -> List[List[int]]:
+    """The greedy first-fit plan of `pack_batches`: the graphs' indices of
+    each batch, in order.
 
     With `tile` set, a graph joins the current batch only if some tile still
     has room for all of its nodes.
@@ -63,20 +65,12 @@ def pack_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
     order = np.arange(len(graphs))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
-    batches = []
-    cur: List[dict] = []
+    groups: List[List[int]] = []
+    cur: List[int] = []
     cur_n = cur_e = 0
     free = (np.full(num_nodes // tile, tile, dtype=np.int64)
             if tile is not None else None)
     max_n = tile if tile is not None else num_nodes
-
-    def flush():
-        nonlocal cur, cur_n, cur_e
-        batches.append(batch_np(cur, num_nodes, num_edges, num_graphs, k=k,
-                                tile=tile))
-        cur, cur_n, cur_e = [], 0, 0
-        if free is not None:
-            free[:] = tile
 
     for i in order:
         g = graphs[i]
@@ -88,17 +82,33 @@ def pack_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
         tile_full = free is not None and not (free >= n).any()
         if (cur_n + n > num_nodes or cur_e + e > num_edges
                 or len(cur) + 1 >= num_graphs or tile_full):
-            flush()
-        cur.append(g)
+            groups.append(cur)
+            cur, cur_n, cur_e = [], 0, 0
+            if free is not None:
+                free[:] = tile
+        cur.append(int(i))
         cur_n += n
         cur_e += e
         if free is not None:
             t = int(np.argmax(free >= n))
             free[t] -= n
     if cur:
-        batches.append(batch_np(cur, num_nodes, num_edges, num_graphs, k=k,
-                                tile=tile))
-    return batches
+        groups.append(cur)
+    return groups
+
+
+def pack_batches(graphs: Sequence[dict], num_nodes: int, num_edges: int,
+                 num_graphs: int, shuffle: bool = False,
+                 seed: int = 0, drop_overflow: bool = True,
+                 k: Optional[int] = None,
+                 tile: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+    """Greedy packing into fixed budgets (`plan_batches`); returns padded
+    array dicts."""
+    return [batch_np([graphs[i] for i in group], num_nodes, num_edges,
+                     num_graphs, k=k, tile=tile)
+            for group in plan_batches(graphs, num_nodes, num_edges,
+                                      num_graphs, shuffle=shuffle, seed=seed,
+                                      drop_overflow=drop_overflow, tile=tile)]
 
 
 def iterate_graphbatches(graphs, num_nodes, num_edges, num_graphs,
@@ -106,17 +116,50 @@ def iterate_graphbatches(graphs, num_nodes, num_edges, num_graphs,
                          prefetch: int = 2, device=None) -> Iterator:
     """Yield GraphBatch objects packed by a background thread: on `device`
     (pinned, then copied without blocking, where it is a card), else CPU
-    tensors."""
+    tensors.
+
+    The thread packs the whole epoch as `pack_batches` does, then makes each
+    batch a GraphBatch and pins it.  Each iterator takes a feed ordinal
+    (`profiling.COUNTERS.new_feed`) when it starts and records, on the host
+    clock, under that ordinal: `pipeline.plan_ms` (the shuffle and the
+    greedy plan), `pipeline.first_batch_ms` (from its start to its first
+    batch in the queue: the epoch-start stall as the producer sees it), a
+    `pipeline.pack_ms` a batch (its `batch_np`, `from_arrays` and pinning,
+    no wait on a full queue), and at each of the consumer's `get()`s the
+    queue's depth (`pipeline.queue_depth`) and the time blocked
+    (`pipeline.get_ms`, also a host span `pipeline.get` while a profiler
+    runs).  `fit`'s log line reads them (`profiling.counters_line`).
+    """
     device = None if device is None else torch.device(device)
     pin = device is not None and device.type == "cuda"
+    counters = profiling.COUNTERS
+    feed = counters.new_feed()
+    clock = time.perf_counter
+    t_start = clock()
 
     def producer(q):
         try:
-            for arrays in pack_batches(graphs, num_nodes, num_edges,
-                                       num_graphs, shuffle=shuffle,
-                                       seed=seed, k=k, tile=tile):
+            t = clock()
+            groups = plan_batches(graphs, num_nodes, num_edges, num_graphs,
+                                  shuffle=shuffle, seed=seed, tile=tile)
+            counters.record("pipeline.plan_ms", (clock() - t) * 1e3, feed)
+            packed = []
+            for group in groups:
+                t = clock()
+                arrays = batch_np([graphs[i] for i in group], num_nodes,
+                                  num_edges, num_graphs, k=k, tile=tile)
+                packed.append((arrays, clock() - t))
+            for i, (arrays, pack_s) in enumerate(packed):
+                t = clock()
                 gb = from_arrays(arrays)
-                q.put(gb.pin_memory() if pin else gb)
+                gb = gb.pin_memory() if pin else gb
+                counters.record("pipeline.pack_ms",
+                                (pack_s + clock() - t) * 1e3, feed)
+                packed[i] = None
+                q.put(gb)
+                if i == 0:
+                    counters.record("pipeline.first_batch_ms",
+                                    (clock() - t_start) * 1e3, feed)
         finally:
             q.put(None)
 
@@ -124,9 +167,15 @@ def iterate_graphbatches(graphs, num_nodes, num_edges, num_graphs,
     t = threading.Thread(target=producer, args=(q,), daemon=True)
     t.start()
     while True:
-        item = q.get()
+        depth = q.qsize()
+        with profiling.span("pipeline.get"):
+            t0 = clock()
+            item = q.get()
+            waited = clock() - t0
         if item is None:
             break
+        counters.record("pipeline.queue_depth", depth, feed)
+        counters.record("pipeline.get_ms", waited * 1e3, feed)
         yield item if device is None else item.to(device, non_blocking=pin)
 
 

@@ -56,6 +56,7 @@ from ..nn.norm import MaskedBatchNorm, MaskedLayerNorm
 from ..ops import (edge_softmax_attention_reference,
                    edge_softmax_attention_tiled, gatedgcn_gate_reference,
                    gatedgcn_gate_tiled, spmm_tile_dense, spmm_tiled)
+from ..utils.profiling import mark
 
 
 def neighbor_sum(x, gb):
@@ -372,7 +373,8 @@ class GatedGCNLayer(nn.Module):
     Under the `pallas_tile` backend on a tiled batch the gate goes through
     `gatedgcn_gate_tiled` (kernel K4 on CUDA tensors, its plain version on
     CPU ones), as the JAX layer engages its fused kernel there; otherwise
-    through the reference form.  Submodule names are the flax ones: `A`-`E`,
+    through the reference form.  That call is the region `gate` of a train
+    step that records device spans (utils/profiling.py: `mark`).  Submodule names are the flax ones: `A`-`E`,
     `bn_h`, `bn_e`.
     """
 
@@ -405,10 +407,11 @@ class GatedGCNLayer(nn.Module):
         if (seg.get_agg_backend() == "pallas_tile"
                 and "tile_starts" in gb.extras):
             bn = gb.num_nodes // gb.extras["tile_starts"].shape[0]
-            agg, e_new = gatedgcn_gate_tiled(
+            Bh, Dh, Eh, Ce = mark("gate", True, Bh, Dh, Eh, Ce)
+            agg, e_new = mark("gate", False, *gatedgcn_gate_tiled(
                 Bh, Dh, Eh, Ce, gb.senders, gb.receivers, gb.edge_mask,
                 gb.extras["tile_starts"], gb.extras["tile_ends"],
-                gb.num_nodes, bn, batch_csr(gb))
+                gb.num_nodes, bn, batch_csr(gb)))
         else:
             agg, e_new = gatedgcn_gate_reference(
                 Bh, Dh, Eh, Ce, gb.senders, gb.receivers, gb.edge_mask,

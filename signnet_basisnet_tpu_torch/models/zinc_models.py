@@ -36,6 +36,12 @@ dense`).
 
 `gnn_model` builds the five ZINC nets: GatedGCN, GIN, GAT, PNA and
 Transformer.
+
+Inside a train step that records device spans (utils/profiling.py:
+`mark`) the nets mark three regions: `pe` (the SignNet encoder's call in
+`embed_inputs`), `convs` (the layer loop) and `head` (from the readout
+on; the train step closes it after the loss).  Elsewhere the marks return
+their tensors themselves.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from ..nn.init import Embedding, Linear, init_parameters
 from ..nn.mlp import MLP, MLPReadout
 from ..nn.remat import checkpoint
 from ..nn.set2set import GRUStep
+from ..utils.profiling import mark
 from ..graph import segment as seg
 from ..graph.dense import DenseGraphBatch
 from .conv import (GATConv, GatedGCNLayer, GatedGCNLSPELayer, GINConv,
@@ -170,7 +177,8 @@ class ZincNet(nn.Module):
         p = None
         if self.pe_init in ("lap_pe", "rand_walk") and pos_enc is not None:
             if self.pe_init == "lap_pe" and self.lap_method == "sign_inv":
-                pos_enc = self.sign_inv_net(gb, pos_enc)
+                pos_enc = mark("pe", True, pos_enc)
+                pos_enc = mark("pe", False, self.sign_inv_net(gb, pos_enc))
             p = self.embedding_p(pos_enc)
         if self.pe_init == "lap_pe" and p is not None and not self.use_lspe:
             if self.pe_aggregate == "concat":
@@ -205,6 +213,7 @@ class ZincNet(nn.Module):
         return self.Whp(torch.cat([h, p], dim=-1)), p
 
     def readout_head(self, gb, h):
+        h = mark("head", True, h)
         hg = pool_any(gb, h, reduce=self.readout)
         return self.mlp_readout(hg)[:, 0]
 
@@ -240,6 +249,7 @@ class GatedGCNNet(ZincNet):
 
     def forward(self, gb, pos_enc=None, return_p: bool = False):
         h, p, e = self.embed_inputs(gb, pos_enc)
+        h, p, e = mark("convs", True, h, p, e)
         for i in range(self.n_layers):
             if isinstance(getattr(self, f"layer_{i}"), GatedGCNLSPELayer):
                 if p is None:
@@ -247,6 +257,7 @@ class GatedGCNNet(ZincNet):
                 h, p, e = self.run_layer(i, gb, h, p, e)
             else:
                 h, e = self.run_layer(i, gb, h, e)
+        h, p = mark("convs", False, h, p)
         h, p = self.merge_p(gb, h, p)
         out = self.readout_head(gb, h)
         return (out, p) if return_p else out
@@ -273,8 +284,10 @@ class GINNet(ZincNet):
 
     def forward(self, gb, pos_enc=None, return_p: bool = False):
         h, p, _ = self.embed_inputs(gb, pos_enc)
+        h = mark("convs", True, h)
         for i in range(self.n_layers):
             h = self.run_layer(i, gb, h)
+        h = mark("convs", False, h)
         h, p = self.merge_p(gb, h, p)
         out = self.readout_head(gb, h)
         return (out, p) if return_p else out
@@ -308,9 +321,10 @@ class GATNet(ZincNet):
 
     def forward(self, gb, pos_enc=None):
         h, _, _ = self.embed_inputs(gb, pos_enc)
+        h = mark("convs", True, h)
         for i in range(self.n_layers):
             h = getattr(self, f"layer_{i}")(gb, h)
-        return self.readout_head(gb, h)
+        return self.readout_head(gb, mark("convs", False, h))
 
 
 class PNANet(ZincNet):
@@ -352,12 +366,13 @@ class PNANet(ZincNet):
     def forward(self, gb, pos_enc=None):
         h, _, e = self.embed_inputs(gb, pos_enc)
         snorm = gb.snorm()
+        h, e = mark("convs", True, h, e)
         for i in range(self.n_layers):
             h_t = self.run_layer(i, gb, h, e, snorm)
             if self.gru is not None and i != self.n_layers - 1:
                 h_t = self.gru(h, h_t)
             h = h_t
-        return self.readout_head(gb, h)
+        return self.readout_head(gb, mark("convs", False, h))
 
 
 class TransformerNet(ZincNet):
@@ -386,9 +401,10 @@ class TransformerNet(ZincNet):
 
     def forward(self, gb, pos_enc=None):
         h, _, e = self.embed_inputs(gb, pos_enc)
+        h, e = mark("convs", True, h, e)
         for i in range(self.n_layers):
             h = self.run_layer(i, gb, h, e)
-        return self.readout_head(gb, h)
+        return self.readout_head(gb, mark("convs", False, h))
 
 
 def sign_inv_module(kind: str, hidden: int, phi_out: int, num_layers: int,

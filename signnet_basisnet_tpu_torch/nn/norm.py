@@ -15,6 +15,8 @@ On a model-parallel shard (parallel/mp_halo.py: `mp_axis_ctx` set) the
 batch statistics come from the count, sum and sum of squares summed over
 the mp group, with the uncentred variance s2/cnt - mean^2, as the JAX
 layer computes them there.
+Inside a train step that records device spans, `MaskedBatchNorm.forward`
+is the region `bn` (utils/profiling.py: `mark`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils.profiling import mark
 from .remat import recomputing
 
 MOMENTUM = 0.1
@@ -41,6 +44,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         d = self.features
+        x = mark("bn", True, x)
         x2 = x.reshape(-1, d)
         m = None if mask is None else mask.reshape(-1, 1).to(x2.dtype)
         # a model-parallel shard: the statistics span every shard of the
@@ -85,7 +89,7 @@ class MaskedBatchNorm(nn.Module):
         y2 = (x2 - mean) / torch.sqrt(var + EPS) * self.weight + self.bias
         if m is not None:
             y2 = y2 * m
-        return y2.reshape(x.shape[:-1] + (d,))
+        return mark("bn", False, y2.reshape(x.shape[:-1] + (d,)))
 
 
 class MaskedLayerNorm(nn.Module):

@@ -41,6 +41,7 @@ import torch
 from ..models.pe import apply_lap_method
 from ..models.zinc_models import lapeig_loss
 from ..nn.dropout import Dropout
+from ..utils import profiling
 from ..utils.profiling import device_memory_stats
 from .checkpoint import load_train_state, train_state
 from .metrics import masked_l1
@@ -137,13 +138,28 @@ def build_steps(model: torch.nn.Module, predict: Callable,
     the loss.  A train step draws its sign flips from `model.flip_rng`
     where the net has one; an eval step from `flip_rng` if given.  Metrics
     stay on the device; `fit`/`evaluate` fetch them once per epoch.
+
+    With `profiling.DEVICE_SPANS` on when the steps are built, a train
+    step in every `DeviceSpans.EVERY` records its device spans
+    (`_train_body`), and each call first reads such a step's regions into
+    `profiling.COUNTERS` once they have arrived (`train_step.spans`, a
+    `profiling.DeviceSpans`; None with them off).
     """
     if eval_bn_mode not in ("running", "batch"):
         raise ValueError(eval_bn_mode)
 
+    spans = profiling.DeviceSpans() if profiling.DEVICE_SPANS else None
+
     def train_step(gb, lr):
         set_lr(optimizer, lr)
-        return _train_body(model, predict, optimizer, gb, loss_fn)
+        if spans is None:
+            return _train_body(model, predict, optimizer, gb, loss_fn)
+        spans.sample()
+        rec = spans.start(next(model.parameters()).device)
+        out = _train_body(model, predict, optimizer, gb, loss_fn, rec)
+        if rec is not None:
+            spans.finished()
+        return out
 
     @torch.no_grad()
     def eval_step(gb, flip_rng=None):
@@ -162,21 +178,31 @@ def build_steps(model: torch.nn.Module, predict: Callable,
         n = gb.graph_mask.sum()
         return {"loss_sum": loss * n, "mae_sum": mae * n, "n": n}
 
+    train_step.spans = spans
     return train_step, eval_step
 
 
-def _train_body(model, predict, optimizer, gb, loss_fn=l1_graph_loss):
+def _train_body(model, predict, optimizer, gb, loss_fn=l1_graph_loss,
+                spans=None):
     """One train step at the optimizer's current LR: the work a captured
     step replays.  Grads are set to None before the backward, so that
-    under capture the backward allocates them in the graph's pool."""
-    model.train()
-    pred = predict(gb, getattr(model, "flip_rng", None))
-    loss = loss_fn(pred, gb)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
-    score = _score(pred).detach()
-    mae = masked_l1(score, _target(score, gb), gb.graph_mask)
+    under capture the backward allocates them in the graph's pool.  With
+    `spans` (a `profiling.StepSpans`) the step records its device spans:
+    the regions the model marks, `head` closed after the loss, `adam`
+    around the optimizer's step, and a stamp at each end of the step."""
+    with profiling.recording(spans):
+        profiling.stamp("step", True)
+        model.train()
+        pred = predict(gb, getattr(model, "flip_rng", None))
+        loss = profiling.mark("head", False, loss_fn(pred, gb))
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        profiling.stamp("adam", True)
+        optimizer.step()
+        profiling.stamp("adam", False)
+        score = _score(pred).detach()
+        mae = masked_l1(score, _target(score, gb), gb.graph_mask)
+        profiling.stamp("step", False)
     return {"loss": loss.detach(), "mae": mae}
 
 
@@ -193,6 +219,15 @@ def _step_rngs(model):
 
 # eager steps run before a capture (the kernels' builds, Adam's state)
 CAPTURE_WARMUP = 3
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The kernel wrappers' launch counters, K1-K5 (ops/)."""
+    from .. import ops
+    attn = ops.edge_softmax_attention_tiled
+    return {"K1": ops.spmm_tiled.launches, "K2": attn.launches_fwd,
+            "K3": attn.launches_bwd, "K4": ops.gatedgcn_gate_tiled.launches,
+            "K5": ops.spmm_flat.launches}
 
 
 def capture_train_step(model: torch.nn.Module, predict: Callable,
@@ -213,10 +248,23 @@ def capture_train_step(model: torch.nn.Module, predict: Callable,
     updates the parameters, the BatchNorm running statistics and Adam's
     moments in place, and draws fresh dropout masks and sign flips (the
     model's generators are registered with the graph).  The kernel wrappers'
-    launch counters count the capture once and no replay.  The metrics
+    launch counters count each capture once and no replay: `step.launches`
+    keeps their growth over a capture, K1-K5 a replay launches, and
+    `step.replays` counts the calls.  The metrics
     returned are copies of the graph's own output tensors, which the next
     replay overwrites.  `step.model` is the model it trains.  A model
     with `remat` and dropout is refused (NotImplementedError).
+
+    With `profiling.DEVICE_SPANS` on at the capture, the step is captured
+    twice: once with its stamps as kernel nodes (the last warm-up step
+    makes their buffers), then without them into the same memory pool.
+    A call that `step.spans` (a `profiling.DeviceSpans`) picks, one in
+    `DeviceSpans.EVERY`, replays the first graph and copies its stamps
+    out; the others replay the second, so they pay nothing for the spans.
+    Each call first reads such a replay's stamps into `profiling.COUNTERS`
+    once they have arrived.  The two graphs never run at once and each
+    writes its outputs before the step copies them, so sharing the pool
+    is safe; a parameter's `.grad` is the second graph's.
     """
     if getattr(model, "remat", False) and any(
             isinstance(m, Dropout) and m.rate for m in model.modules()):
@@ -242,11 +290,14 @@ def capture_train_step(model: torch.nn.Module, predict: Callable,
     rngs = _step_rngs(model)
     saved_rngs = [None if r.generator is None else r.generator.get_state()
                   for r in rngs]
+    spans = profiling.DeviceSpans(dev) if profiling.DEVICE_SPANS else None
+    rec = None if spans is None else spans.recorder
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        for _ in range(CAPTURE_WARMUP):
-            _train_body(model, predict, optimizer, static)
+        for i in range(CAPTURE_WARMUP):
+            _train_body(model, predict, optimizer, static,
+                        spans=rec if i == CAPTURE_WARMUP - 1 else None)
     torch.cuda.current_stream(dev).wait_stream(side)
     with torch.no_grad():
         for t, v in zip(tensors, saved):
@@ -258,27 +309,60 @@ def capture_train_step(model: torch.nn.Module, predict: Callable,
                         v.copy_(saved_opt[p][k])
                     else:  # a fresh Adam: step 0, zero moments
                         v.zero_()
-    graph = torch.cuda.CUDAGraph()
+    gens = []
     for r, st in zip(rngs, saved_rngs):
         gen = r.on(dev)  # made by the warm-up if it was not there
         if st is None:
             gen.manual_seed(r.seed)
         else:
             gen.set_state(st)
-        graph.register_generator_state(gen)
-    optimizer.zero_grad(set_to_none=True)
-    with torch.cuda.graph(graph):
-        outputs = _train_body(model, predict, optimizer, static)
+        gens.append(gen)
 
-    def step(gb, lr):
-        if gb is not static:
-            static.copy_(gb, non_blocking=True)
-        set_lr(optimizer, lr)
+    def capture(recorder, pool=None):
+        graph = torch.cuda.CUDAGraph()
+        for gen in gens:
+            graph.register_generator_state(gen)
+        optimizer.zero_grad(set_to_none=True)
+        with torch.cuda.graph(graph, pool=pool):
+            outputs = _train_body(model, predict, optimizer, static,
+                                  spans=recorder)
+        return graph, outputs
+
+    stamped = None if spans is None else capture(rec)
+    launches = kernel_launches()
+    plain = capture(None, None if stamped is None else stamped[0].pool())
+    launches = {k: v - launches[k] for k, v in kernel_launches().items()}
+    return _CapturedStep(model, optimizer, static, plain, stamped, spans,
+                         launches)
+
+
+class _CapturedStep:
+    """The step `capture_train_step` returns: step(gb, lr) -> metrics, and
+    `model`, `launches`, `replays`, `spans`.  An object rather than a
+    closure, so that no reference cycle keeps its graphs and their memory
+    pool alive once the caller drops it."""
+
+    def __init__(self, model, optimizer, static, plain, stamped, spans,
+                 launches):
+        self.model, self.spans, self.launches = model, spans, launches
+        self.replays = 0
+        self._optimizer, self._static = optimizer, static
+        self._plain, self._stamped = plain, stamped
+
+    def __call__(self, gb, lr):
+        due = False
+        if self.spans is not None:
+            self.spans.sample()
+            due = self.spans.due()
+        if gb is not self._static:
+            self._static.copy_(gb, non_blocking=True)
+        set_lr(self._optimizer, lr)
+        graph, outputs = self._stamped if due else self._plain
         graph.replay()
+        self.replays += 1
+        if due:
+            self.spans.finished()
         return {k: v.clone() for k, v in outputs.items()}
-
-    step.model = model
-    return step
 
 
 @dataclass
@@ -341,6 +425,12 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
     the loop starts at the epoch after it, at the restored LR, as the JAX
     `fit` resumes.
 
+    Every `log_every` epochs the log line adds what the program's
+    counters saw (`profiling.counters_line`): where the epoch's batches
+    came from `iterate_graphbatches`, its first-batch, plan and median
+    pack times, its wait in `get()` and the queue's median depth there;
+    and the last step sample's region shares.
+
     Each history record also holds `train_time` (seconds from the epoch's
     start to its last train metric on the host) and `train_steps`, and
     `eval_time` and `eval_steps`: the epoch's val (and test) evaluation,
@@ -386,7 +476,11 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
         for epoch in range(start_epoch, epochs):
             te0 = time.time()
             ev.update(steps=0, time=0.0)
+            feed = profiling.COUNTERS.newest_feed
             ms = [train_step(gb, sched.lr) for gb in train_batches_fn(epoch)]
+            # the epoch's feed iterator, where its batches came from one
+            feed = (profiling.COUNTERS.newest_feed
+                    if profiling.COUNTERS.newest_feed != feed else None)
             nb = len(ms)
             train_steps += nb
             losses = (torch.stack([torch.stack([m["loss"], m["mae"]])
@@ -415,9 +509,11 @@ def fit(train_step, eval_step, train_batches_fn, val_batches_fn,
             if epoch % log_every == 0:
                 mem = _peak_mem_mb()
                 mem_s = f" peak_mem {mem:.0f}MB" if mem is not None else ""
+                seen = profiling.counters_line(feed)
                 log(f"epoch {epoch:4d} lr {lr_now:.2e} "
                     f"train_mae {train_mae:.4f} val_mae {val['mae']:.4f} "
-                    f"({rec['time']:.1f}s){mem_s}")
+                    f"({rec['time']:.1f}s){mem_s}"
+                    + (f" | {seen}" if seen else ""))
             if checkpointer is not None:
                 checkpointer.save(epoch, train_state(model, optimizer,
                                                      sched.lr, epoch))

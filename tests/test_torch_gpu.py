@@ -48,6 +48,11 @@ data-parallel step in a world of one rank over NCCL against the mean of
 the single-device steps (1e-4 relative; K1 launched per microbatch), and
 a model-parallel step at mp = 2 (two ranks sharing the card over gloo)
 against the single-device step in f64 within 1e-9, with no kernel.
+The captured step's device spans (utils/profiling.py: timer stamps of
+ops/timer_stamp.py, kernel nodes of the graph captured with them) read
+every region of a replay, the step within 10 % of a CUDA-event time of
+that replay, and only the sampled replays stamp; `step.launches` holds
+the eager step's K1 launches and `step.replays` the calls.
 """
 import importlib
 
@@ -1166,3 +1171,149 @@ def test_mp_step_on_the_card(cuda):
                                        atol=1e-12, err_msg=n)
     for n, g in ranks[0]["grads"].items():
         np.testing.assert_array_equal(ranks[1]["grads"][n], g)
+
+
+# ---------------------------------------------------------------------------
+# the captured step's device spans and launches per replay
+# (utils/profiling.py, training.capture_train_step)
+
+def test_captured_step_spans_and_launches_per_replay(cuda):
+    """The flagship GIN's layers at width 16: `step.launches` reads the 47
+    K1 launches of the eager step, `step.replays` counts the calls, and a
+    replay's sample reads every region, each within its step, and the step
+    within 10 % of a CUDA-event time of the same replay with the queue
+    empty (that time also holds the batch's copy-in, the LR fill and the
+    metric copies; the previous replay's sample is read before it)."""
+    from signnet_basisnet_tpu_torch.training import capture_train_step
+    from signnet_basisnet_tpu_torch.utils import profiling
+    gb = _batch(n_graphs=40).to(cuda)
+    net = dict(hidden_dim=16, out_dim=16, n_layers=16, pos_enc_dim=8,
+               lap_method="sign_inv", sign_inv_layers=8, phi_out_dim=4,
+               pe_aggregate="concat")
+    seg.set_agg_backend("pallas_tile")
+    try:
+        models = [gnn_model("GIN", **net).to(cuda) for _ in range(2)]
+        opts = [adam(m.parameters(), capturable=True) for m in models]
+        eager = build_steps(models[0], make_zinc_predict(models[0],
+                                                         "sign_inv"),
+                            opts[0])[0]
+        before = ops.spmm_tiled.launches
+        eager(gb, 1e-3)
+        eager_k1 = ops.spmm_tiled.launches - before
+        step = capture_train_step(models[1], make_zinc_predict(
+            models[1], "sign_inv"), opts[1], gb)
+        step.spans.EVERY = 1   # every replay copied out
+        profiling.COUNTERS.reset()
+        step(gb, 1e-3)
+        torch.cuda.synchronize()
+        assert step.spans.sample()   # the first replay's, read here
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(gb, 1e-3)
+        b.record()
+        b.synchronize()
+        assert step.spans.sample()
+    finally:
+        seg.set_agg_backend("xla")
+    assert eager_k1 == 47
+    assert step.launches == {"K1": 47, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    assert step.replays == 2
+    samples = profiling.COUNTERS.values("step.regions")
+    assert len(samples) == 2
+    last = samples[-1]
+    assert set(last) == {"pe", "convs", "head", "bn", "adam", "step"}
+    for region, ms in last.items():
+        assert 0 < ms <= last["step"], (region, last)
+    outer = a.elapsed_time(b)
+    assert abs(last["step"] - outer) <= 0.1 * outer, (last["step"], outer)
+
+
+def test_only_the_sampled_replays_stamp(cuda):
+    """A captured step replays the graph with the stamps on its first call
+    and then one call in `DeviceSpans.EVERY`; the other calls replay the
+    graph without them, which leaves the stamps' buffer as it was.  Both
+    graphs train: the losses of 10 calls are finite and fall."""
+    gbs = _two_batches(cuda)
+    seg.set_agg_backend("pallas_tile")
+    try:
+        _, captured, _, _ = _capture_pair("GIN", cuda, gbs)
+        buf = captured.spans.recorder.chunks[0]
+        every = captured.spans.EVERY
+        first, written, losses = None, [], []
+        for i in range(every + 2):
+            losses.append(float(captured(gbs[0], 1e-3)["loss"]))
+            torch.cuda.synchronize()
+            if i == 0:
+                first = buf[0].item()
+            written.append(buf[0].item() != first)
+    finally:
+        seg.set_agg_backend("xla")
+    # calls 1 .. EVERY - 1 stamp nothing; call EVERY stamps anew
+    assert written == [False] * every + [True, True]
+    assert bool(torch.isfinite(torch.tensor(losses)).all()), losses
+    assert losses[-1] < losses[0], losses
+    assert captured.replays == every + 2
+
+
+def test_captured_step_without_device_spans(cuda, monkeypatch):
+    """With `profiling.DEVICE_SPANS` off at the capture no stamp enters the
+    graph: no sample is read, and the step still trains."""
+    from signnet_basisnet_tpu_torch.training import capture_train_step
+    from signnet_basisnet_tpu_torch.utils import profiling
+    monkeypatch.setattr(profiling, "DEVICE_SPANS", False)
+    gbs = _two_batches(cuda)
+    seg.set_agg_backend("pallas_tile")
+    try:
+        net = dict(CAPTURE_PATHS["GIN"][0], **SIGNNET)
+        model = gnn_model("GIN", **net).to(cuda)
+        step = capture_train_step(model, make_zinc_predict(model, "sign_inv"),
+                                  adam(model.parameters(), capturable=True),
+                                  gbs[0])
+        profiling.COUNTERS.reset()
+        losses = [float(step(gbs[i % 2], 1e-3)["loss"]) for i in range(3)]
+    finally:
+        seg.set_agg_backend("xla")
+    assert step.spans is None and step.replays == 3
+    assert step.launches["K1"] == CAPTURE_COUNTERS["GIN"]["spmm_tiled"]
+    assert profiling.COUNTERS.values("step.regions") == []
+    assert all(torch.isfinite(torch.tensor(losses)))
+
+
+def test_timer_stamps_follow_the_stream(cuda):
+    """`ops.timer_stamp` around a ~10 ms spin reads that spin within 2 %
+    of CUDA events around the same stamps, in stream order, eagerly and as
+    kernel nodes of a CUDA graph replayed twice (each replay writes its
+    own times), and refuses a slot outside the buffer."""
+    from signnet_basisnet_tpu_torch.ops import timer_stamp
+    buf = torch.zeros(4, dtype=torch.int64, device=cuda)
+
+    def body():
+        timer_stamp(buf, 0)
+        torch.cuda._sleep(20_000_000)
+        timer_stamp(buf, 1)
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), (buf[1] - buf[0]).item() * 1e-6
+
+    before = timer_stamp.launches
+    outer, inner = timed(body)
+    assert timer_stamp.launches - before == 2
+    assert 0.98 * outer <= inner <= outer, (inner, outer)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    stamps = []
+    for _ in range(2):
+        outer, inner = timed(graph.replay)
+        assert 0.98 * outer <= inner <= outer, (inner, outer)
+        stamps.append(buf[0].item())
+    assert stamps[1] > stamps[0] + 5_000_000   # the second replay's own
+    with pytest.raises(IndexError):
+        timer_stamp(buf, 4)
